@@ -3,14 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from guetzli_tpu_torch/csrc with nvcc, holds each
-against its plain PyTorch version at the main path's shapes, times them,
-then drives the main path end to end through guetzli_tpu_torch.api
-.encode_bytes on the card: tests/fixtures/bees96x64.png and
-tests/corpus/photo_mosaic1.png (1444x908) at quality 95, against the
-reference encoder's golden sizes. Every phase that fails makes the script
-exit nonzero. The last two lines of standard output are the kernels' JSON
-record and {"ok": true, "device": {...}}.
+Builds the CUDA kernels from guetzli_tpu_torch/csrc with nvcc and holds
+each of the six entry points against its plain PyTorch version at the
+main paths' shapes, and times them:
+
+  * 4:4:4, on tests/corpus/photo_mosaic1.png (1444x908): the block compare
+    A and the greedy zeroing kernel B (mode "444");
+  * 4:2:0, on tests/corpus/photo_mosaic1-420.jpg read by the port's JPEG
+    reader: the Y pass (A' and B', mode "420y", comp_mask 1) and the chroma
+    pass over 16x16 macroblocks (A'' and B'', mode "420c", comp_mask 6).
+
+Then it drives the main paths end to end through guetzli_tpu_torch.api
+.encode_bytes on the card at quality 95: two PNGs (bees96x64,
+photo_mosaic1) and three JPEGs (bees_d-420, bees_d-progressive,
+photo_mosaic1-420), against the reference encoder's golden sizes
+(tests/golden_corpus.txt, tests/test_e2e.py). Every phase that fails makes
+the script exit nonzero. The last two lines of standard output are the
+kernels' JSON record and {"ok": true, "device": {...}}.
 
 Without a CUDA device, or outside the repository, it exits nonzero and
 prints no result.
@@ -27,12 +36,16 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent
 
-# Golden sizes of the reference encoder (tests/test_e2e.py,
-# tests/golden_corpus.txt:232), and the band the port is held to.
+# Golden sizes of the reference encoder at q95 (tests/test_e2e.py,
+# tests/golden_corpus.txt), and the band the port is held to.
 E2E = [("tests/fixtures/bees96x64.png", 2364),
-       ("tests/corpus/photo_mosaic1.png", 393811)]
+       ("tests/corpus/photo_mosaic1.png", 393811),
+       ("tests/corpus/bees_d-420.jpg", 1681),
+       ("tests/corpus/bees_d-progressive.jpg", 1958),
+       ("tests/corpus/photo_mosaic1-420.jpg", 348714)]
 BAND = 0.02
 QUALITY = 95
+MODES = ("444", "420y", "420c")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor
 # cores, and HBM3 bandwidth.
@@ -44,12 +57,12 @@ def log(*a):
     print(*a, flush=True)
 
 
-def compare_block_ops():
-    """Float and integer operations of one block evaluation, counted from
-    csrc/compare_block.cuh (an 8-term contraction output is 8 multiplies
-    and 7 adds)."""
+def compare_block_ops(mode):
+    """Float and integer operations of one block evaluation in `mode`,
+    counted from csrc/compare_block.cuh (an 8-term contraction output is 8
+    multiplies and 7 adds)."""
     c8 = 15
-    idct = 3 * 2 * 64 * c8                  # integer: two passes, 3 channels
+    idct = 2 * 64 * c8                      # integer: two passes, 1 channel
     ycc = 64 * 12                           # integer color transform
     blur = 3 * 2 * 64 * c8
     clenshaw = 5 * 4 + 3
@@ -61,19 +74,46 @@ def compare_block_ops():
     fft = 64 * 2 * c8 + 64 * 4 * c8 + 64 * 6
     ac = 4 * fft + 3 * (64 * 2) + 64 * 20
     tail = 16
-    return {"float": blur + opsin + mhic + means + low_freq + ac + tail,
-            "int": idct + ycc}
+    finish = blur + opsin + mhic + means + low_freq + ac + tail
+    if mode == "444":
+        return {"float": finish, "int": 3 * idct + ycc}
+    if mode == "420y":
+        return {"float": finish, "int": idct + ycc}
+    # 420c: two chroma IDCTs; per sub-block pixel, two upsampled dithered
+    # chroma bytes (4 neighbourhood reads, 3 multiplies, 3 adds, 2 shifts
+    # and the 2-op dither each) and the color transform; four float
+    # stages and the max.
+    up = 2 * 64 * 10
+    return {"float": 4 * finish + 4, "int": 2 * idct + 4 * (up + ycc)}
 
 
-def bound_ms(n_evals, n_bytes):
+def bound_ms(mode, n_evals, n_bytes):
     """The least time for the work: the larger of the operations over the
     float32 peak and the bytes over the memory rate. Returns (ms, by)."""
-    ops = compare_block_ops()
+    ops = compare_block_ops(mode)
     t_ops = n_evals * (ops["float"] + ops["int"]) / PEAK_FP32
     t_bytes = n_bytes / PEAK_BYTES
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
+
+
+# Bytes per lane that each function must move: its operands read once
+# (A' reads the Y plane of the candidates, A'' the two chroma planes) and
+# its output written once. Greedy loops: coefficients, order, count and
+# limit, the state, and the two [192] rails.
+STATE_BYTES = {"444": 192 * 4 + 3 * 4 + 2 * 4,
+               "420y": 128 * 4 + 192 * 4 + 3 * 4 + 2 * 4,
+               "420c": 200 * 4 + 256 * 4 + 4 * 192 * 4 + 12 * 4 + 12 * 4}
+CAND_BYTES = {"444": 192 * 4, "420y": 64 * 4, "420c": 128 * 4}
+
+
+def compare_bytes(mode):
+    return CAND_BYTES[mode] + STATE_BYTES[mode] + 4
+
+
+def greedy_bytes(mode):
+    return 2 * 192 * 4 + 8 + STATE_BYTES[mode] + 192 * 8
 
 
 def time_cuda(fn, reps=10):
@@ -105,18 +145,19 @@ def phase_device(build):
         torch.cuda.device_count()))
     t0 = time.time()
     build.build_all()
-    log("nvcc build of %d kernels (in parallel): %.1f s"
+    log("nvcc build of %d sources (in parallel): %.1f s"
         % (len(build.SOURCES), time.time() - t0))
     for name, rec in build.build_log.items():
-        info = [ln.strip() for ln in rec["ptxas"].splitlines()
-                if "registers" in ln or "stack frame" in ln]
+        info = [ln.strip().replace("ptxas info    : ", "")
+                for ln in rec["ptxas"].splitlines()
+                if "registers" in ln or "stack frame" in ln
+                or "Compiling entry function" in ln]
         log("  %s: %.1f s; %s" % (name, rec["seconds"], "; ".join(info)))
 
 
-def mosaic_blocks(dev):
-    """photo_mosaic1's coefficients as the encoder starts from them, its
-    comparator's frozen block state, and the q95 block error limit."""
-    from guetzli_tpu_torch import consts
+def mosaic444(dev):
+    """photo_mosaic1's coefficients as the encoder starts from them and its
+    comparator's frozen block state: (blocks, orig, mode, aux, mask)."""
     from guetzli_tpu_torch.codec.encoder import encode_rgb_to_jpeg
     from guetzli_tpu_torch.comparator import Comparator
     from guetzli_tpu_torch.io.png import read_png
@@ -125,80 +166,118 @@ def mosaic_blocks(dev):
     jpg = encode_rgb_to_jpeg(rgb, w, h)
     st.remove_original_quantization(jpg)
     img = st.CoeffImage.from_jpeg(jpg)
-    target = consts.butteraugli_score_for_quality(QUALITY)
-    comp = Comparator(rgb, w, h, target, dev)
+    comp = Comparator(rgb, w, h, target(), dev)
     comp.start_block_comparisons()
     aux = comp.block_state(1, 1)
     blocks = np.ascontiguousarray(img.coeffs.transpose(1, 0, 2))
-    return blocks, aux, np.float32(target)
+    return {"444": (blocks, blocks, aux, 7)}
 
 
-def phase_kernel_a(blocks, aux, dev):
-    """Kernel A on the first greedy step's candidates of every block: its
-    three best-scored coefficients each zeroed (lookahead 3)."""
+def mosaic420(dev):
+    """photo_mosaic1-420.jpg read and decoded by the port, and the inputs of
+    its two 4:2:0 zeroing passes as select_frequency_masking builds them
+    (at the file's own quantization): mode -> (blocks, orig, aux, mask)."""
+    from guetzli_tpu_torch.codec import reader
+    from guetzli_tpu_torch.comparator import Comparator
+    from guetzli_tpu_torch.search import state as st
+    from guetzli_tpu_torch.search.processor import (Params, Processor,
+                                                    decode_jpeg_to_rgb)
+    jpg = reader.read_jpeg((REPO / E2E[4][0]).read_bytes())
+    if not jpg.is_420():
+        raise RuntimeError("photo_mosaic1-420.jpg is not 4:2:0")
+    rgb = decode_jpeg_to_rgb(jpg)
+    comp = Comparator(rgb, jpg.width, jpg.height, target(), dev)
+    st.remove_original_quantization(jpg)
+    img = st.CoeffImage.from_jpeg(jpg)
+    proc = Processor(Params(), comp, None)
+    out = {}
+    for mask in (1, 6):
+        grid = img.comps[mask.bit_length() - 1]
+        blocks, orig = proc.masking_inputs(jpg, img, mask)
+        mode, aux = proc.masking_aux(img, mask, grid)
+        out[mode] = (blocks, orig, aux, mask)
+    log("photo_mosaic1-420: %dx%d, %d Y blocks, %d macroblocks"
+        % (jpg.width, jpg.height, len(out["420y"][0]), len(out["420c"][0])))
+    return out
+
+
+def target():
+    from guetzli_tpu_torch import consts
+    return consts.butteraugli_score_for_quality(QUALITY)
+
+
+def phase_compare(mode, state, dev):
+    """The mode's compare kernel (A, A', A'') on the first greedy step's
+    candidates of every block: its three best-scored coefficients each
+    zeroed (lookahead 3), against its plain version."""
     from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
     from guetzli_tpu_torch.ops import tiles_lanes as tl
     from guetzli_tpu_torch.search import zeroing
+    blocks, orig, aux, mask = state
     nb = blocks.shape[0]
-    scores = zeroing.candidate_scores_host(blocks, blocks, 7)
+    scores = zeroing.candidate_scores_host(blocks, orig, mask)
     order = zeroing._argsort_rows_stable(scores)[:, :3]
     cand = np.repeat(blocks.reshape(nb, 192), 3, axis=0)
     cand[np.arange(3 * nb), order.reshape(-1)] = 0
-    x0, sc, ym, xm = tl.transpose_aux_444(*aux)
-    rep = np.repeat(np.arange(nb), 3)
-    r = torch.as_tensor(rep, device=dev)
-    args = (torch.as_tensor(cand.T.copy(), device=dev).reshape(3, 8, 8, -1)
-            .contiguous(), x0[..., r].contiguous(), sc[:, r].contiguous(),
-            ym[r].contiguous(), xm[r].contiguous())
-    n = args[0].shape[-1]
-    got = ka.tile_compare_lanes(*args)
-    want = tl.compare_lanes(*args)
+    r = torch.as_tensor(np.repeat(np.arange(nb), 3), device=dev)
+    lanes = [a[..., r].contiguous() for a in tl.LANE_AUX[mode](*aux)]
+    ct = torch.as_tensor(cand.T.copy(), device=dev).reshape(3, 8, 8, -1) \
+        .contiguous()
+    n = ct.shape[-1]
+    got = ka.tile_compare_lanes(ct, *lanes, mode=mode)
+    want = tl.COMPARE[mode](ct, *lanes)
     torch.cuda.synchronize()
     max_abs = float((got - want).abs().max())
     max_rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
     equal = bool(torch.equal(got, want))
-    log("kernel A vs plain on %d lanes: max abs %.3g, max rel %.3g, "
-        "bit-equal %s" % (n, max_abs, max_rel, equal))
+    name = ka.ENTRY[mode]
+    log("%s vs plain on %d lanes: max abs %.3g, max rel %.3g, bit-equal %s"
+        % (name, n, max_abs, max_rel, equal))
     if not max_rel <= 1e-5:
-        raise RuntimeError("kernel A disagrees with its plain version")
-    ms = time_cuda(lambda: ka.tile_compare_lanes(*args), 10)
-    plain_ms = time_cuda(lambda: tl.compare_lanes(*args), 3)
-    n_bytes = n * (192 * 4 + 192 * 4 + 3 * 4 + 2 * 4 + 4)
-    b_ms, by = bound_ms(n, n_bytes)
-    log("kernel A: %.4f ms (median of 10), plain %.3f ms, bound %.4f ms "
-        "(%s)" % (ms, plain_ms, b_ms, by))
-    return {"name": "tile_compare_lanes", "route": "cuda",
+        raise RuntimeError("%s disagrees with its plain version" % name)
+    ms = time_cuda(lambda: ka.tile_compare_lanes(ct, *lanes, mode=mode), 10)
+    plain_ms = time_cuda(lambda: tl.COMPARE[mode](ct, *lanes), 3)
+    b_ms, by = bound_ms(mode, n, n * compare_bytes(mode))
+    log("%s: %.4f ms (median of 10), plain %.3f ms, bound %.4f ms (%s)"
+        % (name, ms, plain_ms, b_ms, by))
+    replaces = ("guetzli_tpu/kernels/tile_compare_lanes.py:119"
+                if mode == "444" else
+                "guetzli_tpu/ops/tiles_lanes.py:%d (XLA, no pallas_call)"
+                % (331 if mode == "420y" else 380))
+    return {"name": name, "route": "cuda",
             "source": "guetzli_tpu_torch/csrc/tile_compare_lanes.cu",
-            "replaces": "guetzli_tpu/kernels/tile_compare_lanes.py:119",
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+            "replaces": replaces, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None}
 
 
-def phase_kernel_b(blocks, aux, limit, dev):
-    """Kernel B (fused) against the staged loop (kernel A per step) and
-    against the plain greedy loop, all on the card."""
+def phase_greedy(mode, state, dev, plain_reps):
+    """The mode's greedy kernel (B, B', B'') fused against the staged loop
+    (the mode's compare kernel per step) and against the plain greedy
+    loop, all on the card."""
     from guetzli_tpu_torch.kernels import zeroing_loop as zl
-    from guetzli_tpu_torch.ops import tiles_lanes as tl
     from guetzli_tpu_torch.search import zeroing
+    blocks, orig, aux, mask = state
+    limit = np.float32(target())
+    name = zl.ENTRY[mode]
     t0 = time.time()
-    fused = zeroing.compute_zeroing_csr(blocks, blocks, limit, aux, 7, dev,
-                                        fused=True)
+    fused = zeroing.compute_zeroing_csr(blocks, orig, limit, aux, mask, dev,
+                                        mode=mode, fused=True)
     t1 = time.time()
-    staged = zeroing.compute_zeroing_csr(blocks, blocks, limit, aux, 7, dev,
-                                         fused=False)
+    staged = zeroing.compute_zeroing_csr(blocks, orig, limit, aux, mask, dev,
+                                         mode=mode, fused=False)
     t2 = time.time()
     same = all(np.array_equal(a, b) for a, b in zip(fused, staged))
-    log("fused (kernel B) vs staged (kernel A per step) CSR: %d blocks, "
-        "%d candidates, bit-identical %s (%.2f s, %.2f s)"
-        % (len(fused[0]) - 1, len(fused[1]), same, t1 - t0, t2 - t1))
+    log("%s: fused vs staged (compare kernel per step) CSR: %d blocks, %d "
+        "candidates, bit-identical %s (%.2f s, %.2f s)"
+        % (name, len(fused[0]) - 1, len(fused[1]), same, t1 - t0, t2 - t1))
     if not same:
-        raise RuntimeError("fused and staged zeroing CSR differ")
+        raise RuntimeError("%s: fused and staged zeroing CSR differ" % name)
 
-    # Kernel B against its plain version, on the same inputs.
-    args, _perm, _inv, _lim = zeroing.loop_inputs(blocks, blocks, limit,
-                                                  aux, 7, dev)
-    k_idx, k_err = zl.zeroing_loop(*args)
-    p_idx, p_err = zl.zeroing_loop_plain(*args, evaluate=tl.compare_lanes)
+    args, _perm, _inv, _lim = zeroing.loop_inputs(blocks, orig, limit, aux,
+                                                  mask, dev, mode)
+    k_idx, k_err = zl.zeroing_loop(*args, mode=mode)
+    p_idx, p_err = zl.zeroing_loop_plain(*args, mode=mode)
     torch.cuda.synchronize()
     rows_same = (k_idx == p_idx).all(0) & ((k_err == p_err)
                                           | (k_err.isinf() & p_err.isinf())
@@ -207,41 +286,50 @@ def phase_kernel_b(blocks, aux, limit, dev):
     fin = torch.isfinite(k_err) & (k_idx == p_idx)
     max_abs = float((k_err[fin] - p_err[fin]).abs().max()) if bool(
         fin.any()) else 0.0
-    log("kernel B vs plain greedy loop: identical block rows %.4f%%, "
-        "max abs err %.3g" % (100 * share, max_abs))
+    log("%s vs plain greedy loop: identical block rows %.4f%%, max abs err "
+        "%.3g" % (name, 100 * share, max_abs))
     if share < 0.99:
-        raise RuntimeError("kernel B agrees with its plain version on "
-                           "fewer than 99% of blocks")
-    ms = time_cuda(lambda: zl.zeroing_loop(*args), 3)
-    plain_ms = time_cuda(lambda: zl.zeroing_loop_plain(
-        *args, evaluate=tl.compare_lanes), 1)
+        raise RuntimeError("%s agrees with its plain version on fewer than "
+                           "99%% of blocks" % name)
+    ms = time_cuda(lambda: zl.zeroing_loop(*args, mode=mode), 3)
+    plain_ms = time_cuda(lambda: zl.zeroing_loop_plain(*args, mode=mode),
+                         plain_reps)
     nrem = args[2].long()
     evals = int(torch.where(nrem >= 2, 3 * nrem - 3, nrem).sum())
     n = nrem.numel()
-    n_bytes = n * (2 * 192 * 4 + 4 + 192 * 4 + 3 * 4 + 3 * 4 + 192 * 8)
-    b_ms, by = bound_ms(evals, n_bytes)
-    log("kernel B: %.3f ms (median of 3) for %d blocks, %d evaluations; "
-        "plain %.1f ms; bound %.4f ms (%s)"
-        % (ms, n, evals, plain_ms, b_ms, by))
-    return {"name": "zeroing_loop", "route": "cuda",
+    b_ms, by = bound_ms(mode, evals, n * greedy_bytes(mode))
+    log("%s: %.3f ms (median of 3) for %d blocks, %d evaluations; plain "
+        "%.1f ms (median of %d); bound %.4f ms (%s)"
+        % (name, ms, n, evals, plain_ms, plain_reps, b_ms, by))
+    return {"name": name, "route": "cuda",
             "source": "guetzli_tpu_torch/csrc/zeroing_loop.cu",
-            "replaces": "guetzli_tpu/kernels/zeroing_loop.py:301",
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "replaces": "guetzli_tpu/kernels/zeroing_loop.py:301 (mode %s)"
+            % mode, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
 
+def _launch_counts():
+    from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
+    from guetzli_tpu_torch.kernels import zeroing_loop as zl
+    out = {ka.ENTRY[m]: ka.launches[m] for m in MODES}
+    out.update({zl.ENTRY[m]: zl.launches[m] for m in MODES})
+    return out
+
+
 def phase_e2e(dev):
-    """The main path: api.encode_bytes on the card."""
+    """The main paths: api.encode_bytes on the card, PNG and JPEG in."""
     from guetzli_tpu_torch import api
+    from guetzli_tpu_torch.codec import reader
     from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
     from guetzli_tpu_torch.kernels import zeroing_loop as zl
     from guetzli_tpu_torch.search.processor import ProcessStats
-    ka.launches = 0
-    zl.launches = 0
+    for m in MODES:
+        ka.launches[m] = 0
+        zl.launches[m] = 0
     for path, golden in E2E:
         data = (REPO / path).read_bytes()
         stats = ProcessStats()
-        a0, b0 = ka.launches, zl.launches
+        before = _launch_counts()
         torch.cuda.synchronize()
         t0 = time.time()
         out = api.encode_bytes(data, quality=QUALITY, stats=stats,
@@ -249,14 +337,16 @@ def phase_e2e(dev):
         torch.cuda.synchronize()
         wall = time.time() - t0
         c = stats.counters
+        now = _launch_counts()
+        delta = {k: now[k] - before[k] for k in now}
         log("%s q%d: %.2f s, %d bytes (golden %d, %+.2f%%), distance %.4f; "
             "quant trials %d, zeroing passes %d, back-end iterations %d; "
-            "launches A %d, B %d"
+            "launches %s"
             % (path, QUALITY, wall, len(out), golden,
                100.0 * (len(out) - golden) / golden,
                stats.final_distance or -1, c.get("quant_trials", 0),
                c.get("zeroing_passes", 0), c.get("backend_iters", 0),
-               ka.launches - a0, zl.launches - b0))
+               ", ".join("%s %d" % kv for kv in delta.items())))
         log("  phases: " + ", ".join(
             "%s %.2f s" % kv for kv in sorted(stats.timings.items())))
         if stats.search_error is not None:
@@ -264,12 +354,17 @@ def phase_e2e(dev):
         if abs(len(out) - golden) > BAND * golden:
             raise RuntimeError("%s: %d bytes, outside %d +- 2%%"
                                % (path, len(out), golden))
-        if out[:2] != b"\xff\xd8":
+        if "-420" in path:
+            if not reader.read_jpeg(out).is_420():
+                raise RuntimeError("%s: output is not 4:2:0" % path)
+            if min(delta[zl.ENTRY["420y"]], delta[zl.ENTRY["420c"]]) == 0:
+                raise RuntimeError("%s: a 4:2:0 greedy kernel was not "
+                                   "launched: %s" % (path, delta))
+        elif out[:2] != b"\xff\xd8":
             raise RuntimeError("%s: output is not a JPEG" % path)
-    launches = {"tile_compare_lanes": ka.launches,
-                "zeroing_loop": zl.launches}
+    launches = _launch_counts()
     if min(launches.values()) == 0:
-        raise RuntimeError("a kernel was not launched on the main path: %s"
+        raise RuntimeError("a kernel was not launched on the main paths: %s"
                            % launches)
     return launches
 
@@ -282,13 +377,16 @@ def main():
     from guetzli_tpu_torch.kernels import build
     dev = resolve("cuda")
     phase_device(build)
-    blocks, aux, limit = mosaic_blocks(dev)
-    rec_a = phase_kernel_a(blocks, aux, dev)
-    rec_b = phase_kernel_b(blocks, aux, limit, dev)
+    records = []
+    for states in (mosaic444(dev), mosaic420(dev)):
+        for mode, state in states.items():
+            records.append(phase_compare(mode, state, dev))
+            records.append(phase_greedy(mode, state, dev,
+                                        1 if mode == "420c" else 3))
     launches = phase_e2e(dev)
-    rec_a["launches"] = launches["tile_compare_lanes"]
-    rec_b["launches"] = launches["zeroing_loop"]
-    print(json.dumps({"kernels": [rec_a, rec_b]}))
+    for rec in records:
+        rec["launches"] = launches[rec["name"]]
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

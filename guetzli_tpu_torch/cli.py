@@ -1,12 +1,12 @@
 """guetzli_tpu_torch command line, flag-compatible with the reference CLI
-(guetzli/guetzli.cc:221-366) for PNG input.
+(guetzli/guetzli.cc:221-366).
 
-  python -m guetzli_tpu_torch.cli [flags] in.png out.jpg
+  python -m guetzli_tpu_torch.cli [flags] in.png|in.jpg out.jpg
 
-Runs on the CUDA device; --cpu runs on the CPU instead. --c/--opencl/
---cuda select the reference's accelerated-mode trade-off: each block's
-greedy zeroing stops once its error reaches the block error limit
-(processor.cc:458-465). JPEG input is not ported yet and exits 1.
+The input is a PNG or a JPEG (a 4:2:0 JPEG is searched at 4:2:0). Runs on
+the CUDA device; --cpu runs on the CPU instead. --c/--opencl/--cuda select
+the reference's accelerated-mode trade-off: each block's greedy zeroing
+stops once its error reaches the block error limit (processor.cc:458-465).
 """
 
 import sys
@@ -91,20 +91,23 @@ def main(argv=None) -> int:
             data = f.read()
 
     from guetzli_tpu_torch.api import is_jpeg
+    from guetzli_tpu_torch.codec.reader import peek_dimensions
     from guetzli_tpu_torch.device import resolve
     from guetzli_tpu_torch.io.png import read_png
     from guetzli_tpu_torch.search.processor import (Params, ProcessStats,
+                                                    process_jpeg_bytes,
                                                     process_rgb)
     if is_jpeg(data):
-        sys.stderr.write("JPEG input is not ported to guetzli_tpu_torch "
-                         "yet; give a PNG\n")
-        return 1
-    try:
-        rgb, w, h = read_png(data)
-    except ValueError:
-        sys.stderr.write("Can't decode input image\n")
-        return 1
-    if not _check_memory(w * h, memlimit_mb):
+        dims = peek_dimensions(data)
+        pixels = dims[0] * dims[1] if dims is not None else None
+    else:
+        try:
+            rgb, w, h = read_png(data)
+        except ValueError:
+            sys.stderr.write("Can't decode input image\n")
+            return 1
+        pixels = w * h
+    if pixels is not None and not _check_memory(pixels, memlimit_mb):
         return 1
     try:
         dev = resolve(device)
@@ -114,12 +117,18 @@ def main(argv=None) -> int:
     params = Params()
     params.butteraugli_target = consts.butteraugli_score_for_quality(quality)
     params.zeroing_early_exit = fast_zeroing
-    try:
-        out = process_rgb(params, rgb, w, h, ProcessStats(debug=verbose),
-                          dev)
-    except ValueError:
-        # e.g. quality below 84; the processor printed the reason.
-        return 1
+    stats = ProcessStats(debug=verbose)
+    if is_jpeg(data):
+        # None: unreadable or unsupported; the processor printed why.
+        out = process_jpeg_bytes(params, data, stats, dev)
+        if out is None:
+            return 1
+    else:
+        try:
+            out = process_rgb(params, rgb, w, h, stats, dev)
+        except ValueError:
+            # e.g. quality below 84; the processor printed the reason.
+            return 1
     if out_name == "-":
         sys.stdout.buffer.write(out)
     else:

@@ -1,13 +1,16 @@
-"""Butteraugli comparator: the metric side of the search, 4:4:4.
+"""Butteraugli comparator: the metric side of the search, 4:4:4 and 4:2:0.
 
 Port of guetzli_tpu/comparator.py (guetzli/butteraugli_comparator.{h,cc})
 at exact image geometry. A Comparator computes the original image's opsin
 once and keeps it on its device, and offers:
 
   * the whole-image compare (ButteraugliComparator::Compare, :60-70) and
-    the fused compare + block weights of the back-end loop;
-  * the frozen per-block state of the zeroing pass (StartBlockComparisons
-    :72-79 and SwitchBlock :85-111, hoisted out of the loop).
+    the fused compare + block weights of the back-end loop, of a 4:4:4 or
+    a 4:2:0 coefficient image;
+  * the frozen per-block state of the zeroing passes (StartBlockComparisons
+    :72-79 and SwitchBlock :85-111, hoisted out of the loop), with the
+    4:2:0 passes' frozen chroma bytes, Y bytes, chroma neighborhoods and
+    macroblock children.
 
 PyTorch runs eagerly and CUDA work is queued asynchronously, so the
 dispatch_* / fetch_* pairs keep the JAX package's structure: a dispatch
@@ -24,6 +27,7 @@ from guetzli_tpu_torch import consts
 from guetzli_tpu_torch.ops import diffmap as dm
 from guetzli_tpu_torch.ops import image as img_ops
 from guetzli_tpu_torch.ops import tiles as tile_ops
+from guetzli_tpu_torch.ops import upsample as us
 from guetzli_tpu_torch.ops.opsin import opsin_dynamics_image
 
 _F32 = np.float32
@@ -47,6 +51,17 @@ def _full_compare(coeffs, xyb0, bw, bh, w, h):
     """coeffs [3, NB, 64] int32 -> (score, diffmap [H, W])."""
     lin = img_ops.coeffs_to_linear_rgb(coeffs, bw, bh, w, h)
     dmap = dm.diffmap_opsin_dynamics(xyb0, opsin_dynamics_image(lin))
+    return dm.score_from_diffmap(dmap), dmap
+
+
+def _full_compare_420(y_coeffs, u_coeffs, v_coeffs, xyb0, ybw, ybh, cbw,
+                      cbh, w, h):
+    """4:2:0 coefficients -> (score, diffmap [H, W]) (the compare half of
+    guetzli_tpu/comparator._compare_weights_420)."""
+    srgb = img_ops.coeffs420_to_srgb(y_coeffs, u_coeffs, v_coeffs, ybw, ybh,
+                                     cbw, cbh, w, h)
+    xyb1 = opsin_dynamics_image(img_ops.srgb_to_linear(srgb))
+    dmap = dm.diffmap_opsin_dynamics(xyb0, xyb1)
     return dm.score_from_diffmap(dmap), dmap
 
 
@@ -89,14 +104,6 @@ def _weights_all_radii_impl(distmap, target, sizex, sizey, bw, bh,
     return torch.stack(weights).reshape(4, bw * bh)
 
 
-def _compare_weights_444(coeffs, xyb0, target, bw, bh, w, h, sizex, sizey,
-                         gbw, gbh, direction_pos):
-    score, dmap = _full_compare(coeffs, xyb0, bw, bh, w, h)
-    w4 = _weights_all_radii_impl(dmap, target, sizex, sizey, gbw, gbh,
-                                 direction_pos)
-    return score, dmap, w4
-
-
 def _gather_block_scales(mask_xyz, ys, xs):
     """mask_xyz [3, H, W] -> [NB, 3] values at (ys, xs) per block."""
     return mask_xyz[:, ys, xs].T.contiguous()
@@ -128,20 +135,26 @@ class Comparator:
         # Block-comparison state (built by start_block_comparisons).
         self._mask_xyz = None
         self._block_state = {}
+        # Frozen 4:2:0 zeroing state handed in from elsewhere (interop.py):
+        # "chroma_bytes", "y16", "neighborhoods" or "children"; a present
+        # key is returned instead of computed.
+        self.frozen_state = {}
 
-    def _coeffs(self, img):
-        if not img.is_444():
-            raise NotImplementedError(
-                "4:2:0 compares are not ported to guetzli_tpu_torch yet")
-        return torch.as_tensor(img.coeffs, device=self.device)
+    def _up(self, a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
     # -- full-image comparison ------------------------------------------
 
     def dispatch_compare(self, img):
-        """Queue a whole-image compare of a CoeffImage; fetch_compare_plain
-        completes it."""
-        return _full_compare(self._coeffs(img), self.xyb0, img.bw, img.bh,
-                             self.width, self.height)
+        """Queue a whole-image compare of a CoeffImage (4:4:4 or 4:2:0);
+        fetch_compare_plain completes it."""
+        if img.is_444():
+            return _full_compare(self._up(img.coeffs), self.xyb0, img.bw,
+                                 img.bh, self.width, self.height)
+        y, u, v = img.comps
+        return _full_compare_420(self._up(y.coeffs), self._up(u.coeffs),
+                                 self._up(v.coeffs), self.xyb0, y.bw, y.bh,
+                                 u.bw, u.bh, self.width, self.height)
 
     def fetch_compare_plain(self, handle):
         score, dmap = handle
@@ -195,6 +208,82 @@ class Comparator:
                 torch.as_tensor(xsel, device=self.device))
         return self._block_state[key]
 
+    # -- 4:2:0 per-block evaluation state ---------------------------------
+
+    def frozen_chroma_blocks(self, img):
+        """[NBy, 2, 8, 8] int32 frozen Cb/Cr bytes of each full-res 8x8
+        block for the 4:2:0 Y pass, edge bytes replicated by a clamped
+        gather."""
+        if "chroma_bytes" in self.frozen_state:
+            return self.frozen_state["chroma_bytes"]
+        u, v = img.comps[1], img.comps[2]
+        w, h = self.width, self.height
+        bw, bh = (w + 7) // 8, (h + 7) // 8
+        planes = torch.stack([
+            img_ops.chroma_byte_plane(self._up(c.coeffs), c.bw, c.bh, w, h)
+            for c in (u, v)])                          # [2, h, w]
+        gx = np.minimum(np.tile(np.arange(bw), bh)[:, None] * 8
+                        + np.arange(8)[None, :], w - 1)        # [NB, 8]
+        gy = np.minimum(np.repeat(np.arange(bh), bw)[:, None] * 8
+                        + np.arange(8)[None, :], h - 1)
+        out = planes[:, self._up(gy)[:, :, None], self._up(gx)[:, None, :]]
+        return out.permute(1, 0, 2, 3).contiguous()
+
+    def frozen_y_16x16(self, img, cbw, cbh):
+        """[NBc, 16, 16] int32 frozen Y bytes of each 16x16 macroblock for
+        the 4:2:0 chroma pass (clamped gather)."""
+        if "y16" in self.frozen_state:
+            return self.frozen_state["y16"]
+        y = img.comps[0]
+        w, h = self.width, self.height
+        plane = img_ops.byte_plane(img_ops.blocks_to_plane(
+            img_ops.idct_blocks(self._up(y.coeffs)) << 4, y.bw, y.bh, w, h))
+        gx = np.minimum(np.tile(np.arange(cbw), cbh)[:, None] * 16
+                        + np.arange(16)[None, :], w - 1)
+        gy = np.minimum(np.repeat(np.arange(cbh), cbw)[:, None] * 16
+                        + np.arange(16)[None, :], h - 1)
+        return plane[self._up(gy)[:, :, None], self._up(gx)[:, None, :]]
+
+    def frozen_neighborhoods(self, img):
+        """(neigh_u, neigh_v): [NBc, 10, 10] int32 x16 subsampled
+        neighborhoods of each macroblock's Cb and Cr for the 4:2:0 chroma
+        pass (the frame the candidate's own IDCT is written into)."""
+        if "neighborhoods" in self.frozen_state:
+            return self.frozen_state["neighborhoods"]
+        ws, hs = (img.width + 1) // 2, (img.height + 1) // 2
+        out = []
+        for c in (img.comps[1], img.comps[2]):
+            sub = img_ops.blocks_to_plane(
+                img_ops.idct_blocks(self._up(c.coeffs)) << 4, c.bw, c.bh,
+                ws, hs)
+            out.append(us.neighborhoods_10x10(sub, c.bw, c.bh))
+        return tuple(out)
+
+    def children_state(self, cbw, cbh):
+        """The full-res block state gathered into [NBc, 2, 2, ...] for the
+        2x2 children of each 16x16 macroblock: (xyb0_tiles, scales, ysel,
+        xsel, valid [NBc, 2, 2] bool); invalid children (outside the
+        image) gather block 0."""
+        if "children" in self.frozen_state:
+            return self.frozen_state["children"]
+        xyb0_tiles, scales, ysel, xsel = self.block_state(1, 1)
+        bw, bh = (self.width + 7) // 8, (self.height + 7) // 8
+        cbx = np.tile(np.arange(cbw), cbh)
+        cby = np.repeat(np.arange(cbh), cbw)
+        ix = np.arange(2)
+        child_x = cbx[:, None, None] * 2 + ix[None, None, :]   # [NBc,1,2]
+        child_y = cby[:, None, None] * 2 + ix[None, :, None]   # [NBc,2,1]
+        valid = (child_x < bw) & (child_y < bh)                # [NBc,2,2]
+        idx = self._up(np.where(valid, child_y * bw + child_x, 0)
+                       .reshape(-1))
+        nbc = cbw * cbh
+
+        def g(a):
+            return a[idx].reshape((nbc, 2, 2) + tuple(a.shape[1:]))
+
+        return (g(xyb0_tiles), g(scales), g(ysel), g(xsel),
+                self._up(valid))
+
     # -- block error adjustment weights ---------------------------------
 
     def _grid_dims(self, factor_x, factor_y):
@@ -217,10 +306,11 @@ class Comparator:
         """Queue the compare + next-iteration block weights; returns a
         handle for fetch_compare()."""
         sizex, sizey, gbw, gbh = self._grid_dims(factor_x, factor_y)
-        return _compare_weights_444(
-            self._coeffs(img), self.xyb0,
-            _F32(self.target_distance * target_mul), img.bw, img.bh,
-            self.width, self.height, sizex, sizey, gbw, gbh, direction > 0)
+        score, dmap = self.dispatch_compare(img)
+        w4 = _weights_all_radii_impl(
+            dmap, _F32(self.target_distance * target_mul), sizex, sizey,
+            gbw, gbh, direction > 0)
+        return score, dmap, w4
 
     def fetch_compare(self, handle):
         """Complete a dispatch_compare_with_weights: (distance, [4, NB])."""

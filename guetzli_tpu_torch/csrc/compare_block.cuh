@@ -1,16 +1,23 @@
-// One 8x8 block's CompareBlock error (butteraugli_comparator.cc:113-163),
-// shared by the two kernels of this directory.
+// One block's CompareBlock error (butteraugli_comparator.cc:113-163) in
+// the three modes of the greedy search, shared by the kernels of this
+// directory.
 //
 // Replaces the per-lane evaluation chain of the TPU kernels
 // guetzli_tpu/kernels/tile_compare_lanes.py::_kernel and
-// guetzli_tpu/kernels/zeroing_loop.py::_eval_lanes / _finish_lanes_k
-// (the jnp chain of guetzli_tpu/ops/tiles_lanes.py).
+// guetzli_tpu/kernels/zeroing_loop.py::_eval_lanes / _eval_lanes_420c /
+// _finish_lanes_k (the jnp chain of guetzli_tpu/ops/tiles_lanes.py).
 //
-// Chain: integer IDCT (>>11, >>18, clip) -> edge replication ->
-// fixed-point YCbCr->RGB -> sRGB->linear -> 8x8 opsin (tile-confined blur,
-// Clenshaw gamma) -> MaskHighIntensityChange against the original ->
-// DFT8 block diff (dc / ac / edge) ->
-// sqrt((1-w) * sum_c (dc+ac)*sc + w * sum_c edge*sc).
+// Two stages. The pixel stage is integer and differs by mode: integer IDCT
+// (>>11, >>18, clip) -> edge replication -> fixed-point YCbCr->RGB ->
+// sRGB->linear by table. Mode 444 converts all three channels of one 8x8
+// block; 420y only its Y channel, against frozen chroma bytes; 420c
+// rebuilds a 16x16 macroblock's chroma (IDCT into a frozen 10x10
+// neighbourhood, fancy upsample, dither) and converts each of its four
+// 8x8 sub-blocks against frozen Y bytes. The float stage, finish_block,
+// is one and the same for all: 8x8 opsin (tile-confined blur, Clenshaw
+// gamma) -> MaskHighIntensityChange against the original -> DFT8 block
+// diff (dc / ac / edge) -> sqrt((1-w) * sum_c (dc+ac)*sc +
+// w * sum_c edge*sc).
 //
 // Numerics. Every float operation is written in the order of the plain
 // PyTorch version (guetzli_tpu_torch/ops/tiles_lanes.py): fixed-order
@@ -25,7 +32,10 @@
 // Bound. About 10^5 float operations per block evaluation on ~1.5 KB of
 // per-block state: arithmetic, not bytes, bounds it. This first version
 // keeps the whole state of one block in one thread (local memory, cached in
-// L1) and does no work sharing; the tables sit in shared memory.
+// L1) and does no work sharing; the tables sit in shared memory. Mode 420c
+// runs four float stages per evaluation; its frozen neighbourhoods, Y
+// bytes and opsin tiles are read from global memory where they are used
+// (a private copy would add to the stack, which already spills).
 
 #pragma once
 
@@ -184,55 +194,69 @@ __device__ __forceinline__ float remove_range(float v, float rng) {
   return (v < 0.0f) ? v + rng : v - rng;
 }
 
-// The block error. c: 192 dequantized coefficients (channel*64 + u*8 + x);
-// x0: the block's original opsin tile, element e at x0[e * stride];
-// sc0..sc2: whole-image mask scales; ymax, xmax: edge clamps;
-// T: the table buffer (shared memory).
-__device__ float compare_block(const int* c, const float* __restrict__ x0,
-                               long stride, float sc0, float sc1, float sc2,
-                               int ymax, int xmax, const float* T) {
-  const float* S = T + T_SCAL;
-  float lin[3][64];
-  {
-    int v[3][64];
-    for (int ch = 0; ch < 3; ++ch) {
-      int col[64];
-      for (int i = 0; i < 8; ++i) {
-        for (int x = 0; x < 8; ++x) {
-          int acc = (int)T[T_IDCT + i * 8] * c[ch * 64 + x];
-          for (int j = 1; j < 8; ++j)
-            acc += (int)T[T_IDCT + i * 8 + j] * c[ch * 64 + j * 8 + x];
-          col[i * 8 + x] = (acc + (1 << 10)) >> 11;
-        }
-      }
-      for (int y = 0; y < 8; ++y) {
-        for (int i = 0; i < 8; ++i) {
-          int acc = (int)T[T_IDCT + i * 8] * col[y * 8];
-          for (int j = 1; j < 8; ++j)
-            acc += (int)T[T_IDCT + i * 8 + j] * col[y * 8 + j];
-          acc = (acc + (257 << 17)) >> 18;
-          v[ch][y * 8 + i] = acc < 0 ? 0 : (acc > 255 ? 255 : acc);
-        }
-      }
-    }
-    for (int y = 0; y < 8; ++y) {
-      int sy = y <= ymax ? y : ymax;
-      for (int x = 0; x < 8; ++x) {
-        int sx = x <= xmax ? x : xmax;
-        int p = sy * 8 + sx;
-        int yy = v[0][p], cb = v[1][p] - 128, cr = v[2][p] - 128;
-        int r = yy + ((91881 * cr + 32768) >> 16);
-        int b = yy + ((116130 * cb + 32768) >> 16);
-        int g = yy + (((-46802) * cr + (-22554) * cb + 32768) >> 16);
-        r = r < 0 ? 0 : (r > 255 ? 255 : r);
-        g = g < 0 ? 0 : (g > 255 ? 255 : g);
-        b = b < 0 ? 0 : (b > 255 ? 255 : b);
-        lin[0][y * 8 + x] = T[T_SRGB + r];
-        lin[1][y * 8 + x] = T[T_SRGB + g];
-        lin[2][y * 8 + x] = T[T_SRGB + b];
-      }
+// Integer IDCT of one channel (ComputeBlockIDCT, idct.cc:139-161): 64
+// dequantized coefficients c[u*8 + x] -> bytes v[y*8 + x] in 0..255.
+__device__ __forceinline__ void idct_block(const int* c, int* v,
+                                           const float* T) {
+  int col[64];
+  for (int i = 0; i < 8; ++i) {
+    for (int x = 0; x < 8; ++x) {
+      int acc = (int)T[T_IDCT + i * 8] * c[x];
+      for (int j = 1; j < 8; ++j)
+        acc += (int)T[T_IDCT + i * 8 + j] * c[j * 8 + x];
+      col[i * 8 + x] = (acc + (1 << 10)) >> 11;
     }
   }
+  for (int y = 0; y < 8; ++y) {
+    for (int i = 0; i < 8; ++i) {
+      int acc = (int)T[T_IDCT + i * 8] * col[y * 8];
+      for (int j = 1; j < 8; ++j)
+        acc += (int)T[T_IDCT + i * 8 + j] * col[y * 8 + j];
+      acc = (acc + (257 << 17)) >> 18;
+      v[y * 8 + i] = acc < 0 ? 0 : (acc > 255 ? 255 : acc);
+    }
+  }
+}
+
+// The pixel stage's last step: fixed-point YCbCr -> RGB bytes
+// (color_transform.h), then sRGB -> linear through the table.
+__device__ __forceinline__ float3 ycc_to_linear(int yy, int cb, int cr,
+                                                const float* T) {
+  cb -= 128;
+  cr -= 128;
+  int r = yy + ((91881 * cr + 32768) >> 16);
+  int b = yy + ((116130 * cb + 32768) >> 16);
+  int g = yy + (((-46802) * cr + (-22554) * cb + 32768) >> 16);
+  r = r < 0 ? 0 : (r > 255 ? 255 : r);
+  g = g < 0 ? 0 : (g > 255 ? 255 : g);
+  b = b < 0 ? 0 : (b > 255 ? 255 : b);
+  return make_float3(T[T_SRGB + r], T[T_SRGB + g], T[T_SRGB + b]);
+}
+
+// Stores one pixel's linear RGB into lin [3 * 64] (channel-major). The
+// pixel buffer is flat and the helpers return values: with a
+// float[3][64] buffer written through float (*)[64] parameters, the nvcc
+// 12.8 sm_90a build gave NaN for every block on an H100 (a kernel that
+// also copied the buffer out gave the right values, and so did the host
+// build of the same source).
+__device__ __forceinline__ void store_linear(float* lin, int p, float3 v) {
+  lin[p] = v.x;
+  lin[64 + p] = v.y;
+  lin[128 + p] = v.z;
+}
+
+// The float stage, shared by every mode (the twin of _finish_lanes_k,
+// guetzli_tpu/kernels/zeroing_loop.py:56): lin [3 * 64] linear RGB of the
+// candidate block (channel-major); x0: the block's original opsin tile,
+// element e at x0[e * stride]; sc0..sc2: whole-image mask scales; T: the
+// table buffer (shared memory). Opsin, MaskHighIntensityChange, block
+// diff and the weighted error.
+__device__ __forceinline__ float finish_block(const float* lin,
+                                              const float* __restrict__ x0,
+                                              long stride, float sc0,
+                                              float sc1, float sc2,
+                                              const float* T) {
+  const float* S = T + T_SCAL;
 
   // Opsin: tile-confined blur (y pass, then x pass), then the dynamics.
   float xyb1[3][64];
@@ -243,9 +267,9 @@ __device__ float compare_block(const int* c, const float* __restrict__ x0,
       float tmp[64];
       for (int i = 0; i < 8; ++i)
         for (int x = 0; x < 8; ++x) {
-          float acc = B[i * 8] * lin[ch][x];
+          float acc = B[i * 8] * lin[ch * 64 + x];
           for (int j = 1; j < 8; ++j)
-            acc = acc + B[i * 8 + j] * lin[ch][j * 8 + x];
+            acc = acc + B[i * 8 + j] * lin[ch * 64 + j * 8 + x];
           tmp[i * 8 + x] = acc;
         }
       for (int y = 0; y < 8; ++y)
@@ -263,7 +287,8 @@ __device__ float compare_block(const int* c, const float* __restrict__ x0,
         float pre = mix3(m, blurred[0][p], blurred[1][p], blurred[2][p]) +
                     S[S_BIAS + k];
         float sens = gamma_fn(S, pre) / pre;
-        cur[k] = (mix3(m, lin[0][p], lin[1][p], lin[2][p]) + S[S_BIAS + k]) *
+        cur[k] = (mix3(m, lin[p], lin[64 + p], lin[128 + p]) +
+                  S[S_BIAS + k]) *
                  sens;
       }
       for (int k = 0; k < 3; ++k)
@@ -397,6 +422,123 @@ __device__ float compare_block(const int* c, const float* __restrict__ x0,
   diff_edge = diff_edge + edge[1] * sc1;
   diff_edge = diff_edge + edge[2] * sc2;
   return sqrtf(S[S_1MEW] * diff + S[S_EW] * diff_edge);
+}
+
+// Mode 444: one 8x8 block of all three channels. c: 192 dequantized
+// coefficients (channel*64 + u*8 + x); ymax, xmax: edge clamps.
+__device__ float compare_block(const int* c, const float* __restrict__ x0,
+                               long stride, float sc0, float sc1, float sc2,
+                               int ymax, int xmax, const float* T) {
+  float lin[192];
+  {
+    int v[3][64];
+    for (int ch = 0; ch < 3; ++ch) idct_block(c + ch * 64, v[ch], T);
+    for (int y = 0; y < 8; ++y) {
+      int sy = y <= ymax ? y : ymax;
+      for (int x = 0; x < 8; ++x) {
+        int sx = x <= xmax ? x : xmax;
+        int p = sy * 8 + sx;
+        store_linear(lin, y * 8 + x,
+                     ycc_to_linear(v[0][p], v[1][p], v[2][p], T));
+      }
+    }
+  }
+  return finish_block(lin, x0, stride, sc0, sc1, sc2, T);
+}
+
+// Mode 420y, the 4:2:0 Y pass: only the Y candidate cy[64] goes through
+// the IDCT and edge replication; chroma holds the lane's frozen Cb/Cr
+// bytes [2][8][8] (already edge-replicated), element e at
+// chroma[e * stride].
+__device__ float compare_block_420y(const int* cy,
+                                    const int* __restrict__ chroma,
+                                    const float* __restrict__ x0,
+                                    long stride, float sc0, float sc1,
+                                    float sc2, int ymax, int xmax,
+                                    const float* T) {
+  float lin[192];
+  {
+    int v[64];
+    idct_block(cy, v, T);
+    for (int y = 0; y < 8; ++y) {
+      int sy = y <= ymax ? y : ymax;
+      for (int x = 0; x < 8; ++x) {
+        int sx = x <= xmax ? x : xmax;
+        int p = y * 8 + x;
+        store_linear(lin, p,
+                     ycc_to_linear(v[sy * 8 + sx], chroma[(long)p * stride],
+                                   chroma[(long)(64 + p) * stride], T));
+      }
+    }
+  }
+  return finish_block(lin, x0, stride, sc0, sc1, sc2, T);
+}
+
+// Entry (i, j) of a chroma channel's 10x10 x16 neighbourhood with the
+// candidate's IDCT bytes v shifted << 4 into the interior [1..8]x[1..8];
+// the frame comes from the frozen neighbourhood nb[10][10] (stride).
+__device__ __forceinline__ int neigh_at(const int* v,
+                                        const int* __restrict__ nb,
+                                        long stride, int i, int j) {
+  if (i >= 1 && i <= 8 && j >= 1 && j <= 8)
+    return v[(i - 1) * 8 + (j - 1)] << 4;
+  return nb[(long)(i * 10 + j) * stride];
+}
+
+// The chroma byte at (y, x) of the macroblock's 16x16 area: the fancy
+// upsample (9*s00 + 3*s01 + 3*s10 + s11) >> 4 of the neighbourhood, then
+// the ToPixels dither 8 - (x & 1) and >> 4 (x is the column within the
+// macroblock; 16*bx is even, so its parity is the absolute column's).
+__device__ __forceinline__ int up_byte(const int* v,
+                                       const int* __restrict__ nb,
+                                       long stride, int y, int x) {
+  int cy = (y >> 1) + 1, cx = (x >> 1) + 1;
+  int cy2 = cy + (y & 1) * 2 - 1, cx2 = cx + (x & 1) * 2 - 1;
+  int s = (9 * neigh_at(v, nb, stride, cy, cx) +
+           3 * neigh_at(v, nb, stride, cy, cx2) +
+           3 * neigh_at(v, nb, stride, cy2, cx) +
+           neigh_at(v, nb, stride, cy2, cx2)) >> 4;
+  return (s + 8 - (x & 1)) >> 4;
+}
+
+// Mode 420c, the 4:2:0 chroma pass over one 16x16 macroblock: cu, cv: the
+// Cb and Cr candidates (64 coefficients each); nu, nv: frozen x16
+// neighbourhoods [10][10]; y16: frozen Y bytes [16][16]; per sub-block
+// s = 2*sy + sx: x0c [4][3][8][8] opsin tiles, scc [4][3] scales, ymaxc,
+// xmaxc [4] clamps, validc [4]; every array element e at [e * stride].
+// Returns the max of the valid sub-blocks' errors, starting from 0.
+__device__ float compare_block_420c(
+    const int* cu, const int* cv, const int* __restrict__ nu,
+    const int* __restrict__ nv, const int* __restrict__ y16,
+    const float* __restrict__ x0c, const float* __restrict__ scc,
+    const int* __restrict__ ymaxc, const int* __restrict__ xmaxc,
+    const int* __restrict__ validc, long stride, const float* T) {
+  int vu[64], vv[64];
+  idct_block(cu, vu, T);
+  idct_block(cv, vv, T);
+  float best = 0.0f;
+  for (int s = 0; s < 4; ++s) {
+    if (validc[s * stride] <= 0) continue;   // contributes 0 to the max
+    const int oy = (s >> 1) * 8, ox = (s & 1) * 8;
+    const int ymax = ymaxc[s * stride], xmax = xmaxc[s * stride];
+    float lin[192];
+    for (int y = 0; y < 8; ++y) {
+      int yy = oy + (y <= ymax ? y : ymax);
+      for (int x = 0; x < 8; ++x) {
+        int xx = ox + (x <= xmax ? x : xmax);
+        store_linear(lin, y * 8 + x,
+                     ycc_to_linear(y16[(long)(yy * 16 + xx) * stride],
+                                   up_byte(vu, nu, stride, yy, xx),
+                                   up_byte(vv, nv, stride, yy, xx), T));
+      }
+    }
+    float err = finish_block(
+        lin, x0c + (long)s * 192 * stride, stride,
+        scc[(long)(s * 3) * stride], scc[(long)(s * 3 + 1) * stride],
+        scc[(long)(s * 3 + 2) * stride], T);
+    best = max_nan(best, err);
+  }
+  return best;
 }
 
 // Copies the table buffer into shared memory; every thread of the block

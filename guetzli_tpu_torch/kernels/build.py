@@ -22,7 +22,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-# Kernel name -> its source file; compare_block.cuh is included by both.
+# Library name -> its source file; compare_block.cuh is included by both.
 SOURCES = {
     "tile_compare_lanes": "tile_compare_lanes.cu",
     "zeroing_loop": "zeroing_loop.cu",
@@ -35,12 +35,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# ctypes signatures: every pointer and the stream as c_void_p.
+# Entry point -> (library, C function, ctypes argument types): every
+# pointer and the stream as c_void_p. A compare takes (candidates, state
+# pointers..., tables, out, n, stream); a greedy loop takes (coeffs,
+# order, nrem, lim, state pointers..., tables, out_idx, out_err, n,
+# lookahead, early_exit, stream).
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
-    "tile_compare_lanes": ("gt_tile_compare_lanes", [_P] * 7 + [_I, _P]),
-    "zeroing_loop": ("gt_zeroing_loop", [_P] * 11 + [_I, _I, _I, _P]),
+    "tile_compare_lanes": ("tile_compare_lanes", "gt_tile_compare_lanes",
+                           [_P] * 7 + [_I, _P]),
+    "tile_compare_lanes_420y": ("tile_compare_lanes",
+                                "gt_tile_compare_lanes_420y",
+                                [_P] * 8 + [_I, _P]),
+    "tile_compare_lanes_420c": ("tile_compare_lanes",
+                                "gt_tile_compare_lanes_420c",
+                                [_P] * 11 + [_I, _P]),
+    "zeroing_loop": ("zeroing_loop", "gt_zeroing_loop",
+                     [_P] * 11 + [_I, _I, _I, _P]),
+    "zeroing_loop_420y": ("zeroing_loop", "gt_zeroing_loop_420y",
+                          [_P] * 12 + [_I, _I, _I, _P]),
+    "zeroing_loop_420c": ("zeroing_loop", "gt_zeroing_loop_420c",
+                          [_P] * 15 + [_I, _I, _I, _P]),
 }
 
 _loaded = {}
@@ -98,12 +114,12 @@ def build_all(names=None):
 
 
 def load(name):
-    """The ctypes handle of kernel `name`'s C entry point (builds all
-    missing kernels first)."""
+    """The ctypes handle of entry point `name` (SIGNATURES; builds all
+    missing libraries first)."""
     if name not in _loaded:
         build_all()
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        fname, argtypes = SIGNATURES[name]
+        libname, fname, argtypes = SIGNATURES[name]
+        lib = ctypes.CDLL(str(_lib_path(libname)))
         fn = getattr(lib, fname)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

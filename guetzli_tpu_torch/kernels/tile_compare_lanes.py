@@ -1,9 +1,13 @@
-"""Kernel A: the per-block compare over lane-major candidates.
+"""Kernel A and its 4:2:0 twins: the per-block compare over lane-major
+candidates.
 
-Port of guetzli_tpu/kernels/tile_compare_lanes.py (_tile_compare_lanes).
-The CUDA kernel is csrc/tile_compare_lanes.cu (one thread per block, the
-chain in csrc/compare_block.cuh); its plain PyTorch version is
-ops/tiles_lanes.compare_lanes.
+Port of guetzli_tpu/kernels/tile_compare_lanes.py (_tile_compare_lanes),
+mode "444" (kernel A), and of the JAX package's XLA compares
+ops/tiles_lanes.compare_blocks_lanes420y / 420c (A' and A'', which the
+zeroing driver needs to check kernels B' and B''). The CUDA kernels are
+csrc/tile_compare_lanes.cu (one thread per block, the chain in
+csrc/compare_block.cuh); their plain PyTorch versions are
+ops/tiles_lanes.COMPARE.
 
 ``tile_compare_lanes`` runs the plain version for CPU tensors only. For
 CUDA tensors it launches the kernel or raises; it never falls back.
@@ -12,12 +16,19 @@ CUDA tensors it launches the kernel or raises; it never falls back.
 import torch
 
 from guetzli_tpu_torch.kernels import build, tables
-from guetzli_tpu_torch.ops.tiles_lanes import compare_lanes
+from guetzli_tpu_torch.ops.tiles_lanes import COMPARE
 
-# Kernel launches since the last reset (a caller may set it to 0).
-launches = 0
+# Kernel launches per mode since the last reset (a caller may zero them).
+launches = {"444": 0, "420y": 0, "420c": 0}
+
+# The C entry point (csrc/tile_compare_lanes.cu) of each mode.
+ENTRY = {"444": "tile_compare_lanes", "420y": "tile_compare_lanes_420y",
+         "420c": "tile_compare_lanes_420c"}
 
 _tables = {}
+
+_F32 = torch.float32
+_I32 = torch.int32
 
 
 def table_buffer(device):
@@ -45,32 +56,56 @@ def check(t, name, dtype, shape, device):
         raise ValueError("%s must be contiguous" % name)
 
 
-def tile_compare_lanes(cand_t, x0, sc, ymax, xmax):
+def aux_specs(mode, n):
+    """(name, dtype, shape) of each frozen-state operand of a mode's block
+    compare over n lanes, in argument order."""
+    if mode == "444":
+        return [("x0", _F32, (3, 8, 8, n)), ("sc", _F32, (3, n)),
+                ("ymax", _I32, (n,)), ("xmax", _I32, (n,))]
+    if mode == "420y":
+        return [("chroma", _I32, (2, 8, 8, n))] + aux_specs("444", n)
+    if mode == "420c":
+        return [("nu", _I32, (10, 10, n)), ("nv", _I32, (10, 10, n)),
+                ("y16", _I32, (16, 16, n)),
+                ("x0c", _F32, (2, 2, 3, 8, 8, n)),
+                ("scc", _F32, (2, 2, 3, n)), ("ymaxc", _I32, (2, 2, n)),
+                ("xmaxc", _I32, (2, 2, n)), ("validc", _I32, (2, 2, n))]
+    raise ValueError("unknown mode %r" % (mode,))
+
+
+def check_aux(aux, mode, n, device):
+    specs = aux_specs(mode, n)
+    if len(aux) != len(specs):
+        raise TypeError("mode %s takes %d state operands, got %d"
+                        % (mode, len(specs), len(aux)))
+    for a, (name, dtype, shape) in zip(aux, specs):
+        check(a, name, dtype, shape, device)
+
+
+def tile_compare_lanes(cand_t, *aux, mode="444"):
     """Block errors [N] float32.
 
-    cand_t: [3, 8, 8, N] int32 dequantized candidate coefficients;
-    x0: [3, 8, 8, N] float32 original opsin tiles; sc: [3, N] float32
-    mask scales; ymax, xmax: [N] int32 edge clamps."""
-    global launches
+    cand_t: [3, 8, 8, N] int32 dequantized candidate coefficients (mode
+    "420y" reads plane 0, "420c" planes 1 and 2); aux: the mode's
+    lane-major frozen state (aux_specs): for "444" x0 [3, 8, 8, N] float32
+    original opsin tiles, sc [3, N] float32 mask scales, ymax, xmax [N]
+    int32 edge clamps."""
     n = cand_t.shape[-1]
     dev = cand_t.device
-    check(cand_t, "cand_t", torch.int32, (3, 8, 8, n), dev)
-    check(x0, "x0", torch.float32, (3, 8, 8, n), dev)
-    check(sc, "sc", torch.float32, (3, n), dev)
-    check(ymax, "ymax", torch.int32, (n,), dev)
-    check(xmax, "xmax", torch.int32, (n,), dev)
+    check(cand_t, "cand_t", _I32, (3, 8, 8, n), dev)
+    check_aux(aux, mode, n, dev)
     if dev.type == "cpu":
-        return compare_lanes(cand_t, x0, sc, ymax, xmax)
+        return COMPARE[mode](cand_t, *aux)
     if dev.type != "cuda":
         raise ValueError("unsupported device %s" % dev)
-    fn = build.load("tile_compare_lanes")
+    fn = build.load(ENTRY[mode])
     tab = table_buffer(dev)
-    out = torch.empty(n, dtype=torch.float32, device=dev)
-    rc = fn(cand_t.data_ptr(), x0.data_ptr(), sc.data_ptr(),
-            ymax.data_ptr(), xmax.data_ptr(), tab.data_ptr(),
-            out.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+    out = torch.empty(n, dtype=_F32, device=dev)
+    rc = fn(cand_t.data_ptr(), *[a.data_ptr() for a in aux],
+            tab.data_ptr(), out.data_ptr(), n,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError("tile_compare_lanes launch failed: CUDA error "
-                           "%d" % rc)
-    launches += 1
+        raise RuntimeError("%s launch failed: CUDA error %d"
+                           % (ENTRY[mode], rc))
+    launches[mode] += 1
     return out

@@ -1,12 +1,16 @@
-"""Kernel B: the whole greedy zeroing search, one thread per block.
+"""Kernels B, B' and B'': the whole greedy zeroing search, one thread per
+block.
 
-Port of guetzli_tpu/kernels/zeroing_loop.py (zeroing_loop_lanes, mode
-"444"). The CUDA kernel is csrc/zeroing_loop.cu; ``zeroing_loop_plain``
-below is its plain PyTorch version. The plain loop takes the block
-evaluator as an argument: with the plain compare
-(ops/tiles_lanes.compare_lanes) it is the kernel's twin; with kernel A
-(kernels/tile_compare_lanes.tile_compare_lanes) it is the staged loop
-of search/zeroing.py, whose rails equal the fused kernel's bit for bit.
+Port of guetzli_tpu/kernels/zeroing_loop.py (zeroing_loop_lanes) in its
+three modes: "444" (B, 8x8 blocks of all three channels), "420y" (B',
+the 4:2:0 Y pass over 8x8 Y blocks against frozen chroma) and "420c"
+(B'', the 4:2:0 chroma pass over 16x16 macroblocks against frozen Y).
+The CUDA kernels are csrc/zeroing_loop.cu; ``zeroing_loop_plain`` below
+is their plain PyTorch version. The plain loop takes the block evaluator
+as an argument: with the plain compare of the mode (ops/tiles_lanes
+.COMPARE) it is the kernels' twin; with kernel A of the mode
+(kernels/tile_compare_lanes.tile_compare_lanes) it is the staged loop of
+search/zeroing.py, whose rails equal the fused kernel's bit for bit.
 
 ``zeroing_loop`` runs the plain version for CPU tensors only. For CUDA
 tensors it launches the kernel or raises; it never falls back.
@@ -15,25 +19,32 @@ tensors it launches the kernel or raises; it never falls back.
 import torch
 
 from guetzli_tpu_torch.kernels import build
-from guetzli_tpu_torch.kernels.tile_compare_lanes import check, table_buffer
-from guetzli_tpu_torch.ops.tiles_lanes import compare_lanes
+from guetzli_tpu_torch.kernels.tile_compare_lanes import (check, check_aux,
+                                                          table_buffer)
+from guetzli_tpu_torch.ops.tiles_lanes import COMPARE
 
 K = 192  # 3 * 64 candidate slots per block
 
-# Kernel launches since the last reset (a caller may set it to 0).
-launches = 0
+# Kernel launches per mode since the last reset (a caller may zero them).
+launches = {"444": 0, "420y": 0, "420c": 0}
+
+# The C entry point (csrc/zeroing_loop.cu) of each mode.
+ENTRY = {"444": "zeroing_loop", "420y": "zeroing_loop_420y",
+         "420c": "zeroing_loop_420c"}
 
 
-def zeroing_loop_plain(coeffs_t, order_t, nrem, x0, sc, ymax, xmax, lim,
-                       lookahead=3, early_exit=False, evaluate=compare_lanes):
+def zeroing_loop_plain(coeffs_t, order_t, nrem, lim, aux, mode="444",
+                       lookahead=3, early_exit=False, evaluate=None):
     """The greedy loop on lane-major state, as whole-tensor steps.
 
     Each step advances every block that still has candidates: evaluate
     its next `lookahead` candidates zeroed (only those below its remaining
     count), take the strict-< argmin (ties keep the earlier), commit the
     zero, shift the order list up from the chosen position, and write
-    (index, error) into row t of the rails. Arguments and results as
-    ``zeroing_loop``."""
+    (index, error) into row t of the rails. `evaluate(cand [3, 8, 8, M],
+    *aux_lanes)` scores candidates (default: the mode's plain compare).
+    Arguments and results as ``zeroing_loop``."""
+    evaluate = evaluate or COMPARE[mode]
     dev = coeffs_t.device
     n = coeffs_t.shape[1]
     coeffs = coeffs_t.clone()       # updated in place below
@@ -66,9 +77,7 @@ def zeroing_loop_plain(coeffs_t, order_t, nrem, x0, sc, ymax, xmax, lim,
         col = torch.cat(cols)
         blk = act[col]
         errs = evaluate(torch.cat(cands, 1).reshape(3, 8, 8, -1),
-                        x0[..., blk].contiguous(),
-                        sc[:, blk].contiguous(),
-                        ymax[blk].contiguous(), xmax[blk].contiguous())
+                        *[a[..., blk].contiguous() for a in aux])
         grid = torch.full((lookahead, na), float("inf"), device=dev)
         grid[lane, col] = errs
         best_err = grid[0]
@@ -92,44 +101,40 @@ def zeroing_loop_plain(coeffs_t, order_t, nrem, x0, sc, ymax, xmax, lim,
     return out_idx, out_err
 
 
-def zeroing_loop(coeffs_t, order_t, nrem, x0, sc, ymax, xmax, lim,
+def zeroing_loop(coeffs_t, order_t, nrem, lim, aux, mode="444",
                  lookahead=3, early_exit=False):
     """Run every block's greedy zeroing loop.
 
     coeffs_t: [192, N] int32 dequantized coefficients (row c*64+k);
     order_t: [192, N] int32 score-sorted candidate order; nrem: [N] int32
-    candidate counts; x0: [3, 8, 8, N] float32 original opsin tiles;
-    sc: [3, N] float32 mask scales; ymax, xmax: [N] int32 edge clamps;
-    lim: [N] float32 error limits (read with early_exit only).
+    candidate counts; lim: [N] float32 error limits (read with early_exit
+    only); aux: the mode's lane-major frozen state
+    (kernels/tile_compare_lanes.aux_specs).
     Returns (out_idx [192, N] int32, out_err [192, N] float32): row t of
     block b holds the t-th zeroed slot and the block error after it;
     rows past the block's last step hold (0, +inf)."""
-    global launches
     n = coeffs_t.shape[-1]
     dev = coeffs_t.device
     check(coeffs_t, "coeffs_t", torch.int32, (K, n), dev)
     check(order_t, "order_t", torch.int32, (K, n), dev)
     check(nrem, "nrem", torch.int32, (n,), dev)
-    check(x0, "x0", torch.float32, (3, 8, 8, n), dev)
-    check(sc, "sc", torch.float32, (3, n), dev)
-    check(ymax, "ymax", torch.int32, (n,), dev)
-    check(xmax, "xmax", torch.int32, (n,), dev)
     check(lim, "lim", torch.float32, (n,), dev)
+    check_aux(aux, mode, n, dev)
     if dev.type == "cpu":
-        return zeroing_loop_plain(coeffs_t, order_t, nrem, x0, sc, ymax,
-                                  xmax, lim, lookahead, early_exit)
+        return zeroing_loop_plain(coeffs_t, order_t, nrem, lim, aux, mode,
+                                  lookahead, early_exit)
     if dev.type != "cuda":
         raise ValueError("unsupported device %s" % dev)
-    fn = build.load("zeroing_loop")
+    fn = build.load(ENTRY[mode])
     tab = table_buffer(dev)
     out_idx = torch.empty((K, n), dtype=torch.int32, device=dev)
     out_err = torch.empty((K, n), dtype=torch.float32, device=dev)
     rc = fn(coeffs_t.data_ptr(), order_t.data_ptr(), nrem.data_ptr(),
-            x0.data_ptr(), sc.data_ptr(), ymax.data_ptr(), xmax.data_ptr(),
-            lim.data_ptr(), tab.data_ptr(), out_idx.data_ptr(),
-            out_err.data_ptr(), n, lookahead, int(bool(early_exit)),
-            torch.cuda.current_stream(dev).cuda_stream)
+            lim.data_ptr(), *[a.data_ptr() for a in aux], tab.data_ptr(),
+            out_idx.data_ptr(), out_err.data_ptr(), n, lookahead,
+            int(bool(early_exit)), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError("zeroing_loop launch failed: CUDA error %d" % rc)
-    launches += 1
+        raise RuntimeError("%s launch failed: CUDA error %d"
+                           % (ENTRY[mode], rc))
+    launches[mode] += 1
     return out_idx, out_err

@@ -108,6 +108,34 @@ def coeffs_to_srgb(coeffs, bw, bh, w, h):
     return pixels_to_srgb(blocks_to_plane(pix, bw, bh, w, h))
 
 
+def byte_plane(pix_x16):
+    """x16 pixel plane [..., H, W] -> bytes via the ToPixels parity dither
+    (output_image.cc:83) on the absolute column."""
+    x = torch.arange(pix_x16.shape[-1], dtype=torch.int32,
+                     device=pix_x16.device)
+    return (pix_x16 + (8 - (x & 1))) >> 4
+
+
+def chroma_byte_plane(coeffs, bw, bh, w, h):
+    """Factor-2 chroma component [NB, 64] -> full-res bytes [h, w]:
+    IDCT -> x16 subsampled plane -> fancy upsample -> dither."""
+    from guetzli_tpu_torch.ops import upsample as us
+    sub = blocks_to_plane(idct_blocks(coeffs) << 4, bw, bh,
+                          (w + 1) // 2, (h + 1) // 2)
+    return byte_plane(us.fancy_upsample(sub, w, h))
+
+
+def coeffs420_to_srgb(y_coeffs, u_coeffs, v_coeffs, ybw, ybh, cbw, cbh,
+                      w, h):
+    """YUV420 state -> [3, H, W] int32 sRGB bytes (OutputImage::ToSRGB with
+    factor-2 chroma)."""
+    yb = byte_plane(blocks_to_plane(idct_blocks(y_coeffs) << 4, ybw, ybh,
+                                    w, h))
+    ub = chroma_byte_plane(u_coeffs, cbw, cbh, w, h)
+    vb = chroma_byte_plane(v_coeffs, cbw, cbh, w, h)
+    return ycbcr_to_rgb(yb, ub, vb)
+
+
 def coeffs_to_linear_rgb(coeffs, bw, bh, w, h):
     """[3, NB, 64] int32 dequantized coefficients -> [3, H, W] linear RGB
     (OutputImage::ToLinearRGB for a YUV444 image)."""

@@ -216,3 +216,157 @@ def transpose_aux_444(xyb0_tiles, scales, ysel, xsel):
     ymax = ysel[:, 7].to(torch.int32).contiguous()
     xmax = xsel[:, 7].to(torch.int32).contiguous()
     return x0, sc, ymax, xmax
+
+
+# -- 4:2:0 Y pass ---------------------------------------------------------
+
+def compare_lanes_420y(cand_t, chroma_t, xyb0_t, scales_t, ymax, xmax):
+    """The 4:2:0 Y-pass CompareBlock: only the Y plane of cand_t
+    [3, 8, 8, N] goes through the IDCT and edge replication; it is
+    converted with the block's frozen Cb/Cr bytes chroma_t [2, 8, 8, N]
+    int32 (already edge-replicated). Returns [N] float32."""
+    yv = edge_replicate_lanes(idct_lanes(cand_t[0]), ymax, xmax)
+    return finish_lanes(ycbcr_to_rgb_lanes(yv, chroma_t[0], chroma_t[1]),
+                        xyb0_t, scales_t)
+
+
+def compare_blocks_lanes420y(cand_y, *aux):
+    """compare_lanes_420y with blocks-leading Y candidates [N, 64] (the
+    signature of guetzli_tpu/ops/tiles_lanes.compare_blocks_lanes420y)."""
+    return compare_lanes_420y(cand_y.reshape(-1, 8, 8).permute(1, 2, 0)[None],
+                              *aux)
+
+
+def transpose_aux_420y(chroma_bytes, xyb0_tiles, scales, ysel, xsel):
+    """Frozen 4:2:0 Y-pass state -> lane-major: [N, 2, 8, 8] chroma bytes
+    to [2, 8, 8, N] int32, plus the 4:4:4 transposes."""
+    ch = chroma_bytes.to(torch.int32).permute(1, 2, 3, 0).contiguous()
+    return (ch,) + transpose_aux_444(xyb0_tiles, scales, ysel, xsel)
+
+
+# -- 4:2:0 chroma pass ------------------------------------------------------
+
+_UP_X = np.arange(16)
+_UP_C1 = (_UP_X >> 1) + 1                          # into the 10-wide frame
+_UP_C2 = _UP_C1 + (_UP_X & 1) * 2 - 1
+
+
+def upsample_16x16_lanes(neigh):
+    """[10, 10, N] x16 subsampled neighborhoods -> [16, 16, N] x16
+    full-res pixels (ops/upsample.upsample_16x16_from_neighborhood,
+    lane-major)."""
+    c1 = torch.as_tensor(_UP_C1, device=neigh.device)
+    c2 = torch.as_tensor(_UP_C2, device=neigh.device)
+    r1 = neigh[c1]
+    r2 = neigh[c2]
+    return (9 * r1[:, c1] + 3 * r1[:, c2] + 3 * r2[:, c1]
+            + r2[:, c2]) >> 4
+
+
+def split16_lanes(p):
+    """[16, 16, N] -> [8, 8, 4N]: the 2x2 sub-block grid folded into the
+    lane axis in the order (sub_y, sub_x, n), n fastest."""
+    n = p.shape[-1]
+    q = p.reshape(2, 8, 2, 8, n)                   # (sy, y, sx, x, n)
+    return q.permute(1, 3, 0, 2, 4).reshape(8, 8, 4 * n)
+
+
+def chroma16_bytes(cand_c, neigh):
+    """One chroma channel of a macroblock: the candidate's IDCT bytes
+    [8, 8, N], shifted << 4 into the interior of its frozen 10x10 x16
+    neighborhood [10, 10, N], upsampled to 16x16 and dithered with
+    8 - (x & 1) on the column within the macroblock (16*bx is even, so
+    that is the absolute column's parity) -> bytes [16, 16, N]."""
+    filled = neigh.clone()
+    filled[1:9, 1:9] = idct_lanes(cand_c) << 4
+    dith = torch.as_tensor(8 - (_UP_X & 1), dtype=torch.int32,
+                           device=neigh.device)[None, :, None]
+    return (upsample_16x16_lanes(filled) + dith) >> 4
+
+
+def _compare_420c_folded(cand_u, cand_v, neigh_u, neigh_v, y16s, xyb0_s,
+                         scales_s, ymax_s, xmax_s, valid):
+    """The macroblock compare with the four sub-blocks folded into the
+    lanes: every sub-block is one CompareBlock against the frozen Y bytes;
+    the result is the max over the valid sub-blocks, 0 for invalid ones
+    (the max starts at 0). valid: [2, 2, N] bool."""
+    ub = split16_lanes(chroma16_bytes(cand_u, neigh_u))
+    vb = split16_lanes(chroma16_bytes(cand_v, neigh_v))
+
+    def rep(p):
+        return edge_replicate_lanes(p, ymax_s, xmax_s)
+
+    errs = finish_lanes(ycbcr_to_rgb_lanes(rep(y16s), rep(ub), rep(vb)),
+                        xyb0_s, scales_s).reshape(2, 2, -1)
+    errs = torch.where(valid, errs, torch.zeros_like(errs))
+    return torch.maximum(torch.maximum(errs[0, 0], errs[1, 0]),
+                         torch.maximum(errs[0, 1], errs[1, 1]))
+
+
+def fold_aux_420c(nu, nv, y16, x0c, scc, ymaxc, xmaxc, validc):
+    """The kernel layout of the chroma-pass state (sub-blocks as leading
+    dims, kernel_aux_420c) -> the folded layout of transpose_aux_420c."""
+    n = nu.shape[-1]
+    return (nu, nv, split16_lanes(y16),
+            x0c.permute(2, 3, 4, 0, 1, 5).reshape(3, 8, 8, 4 * n),
+            scc.permute(2, 0, 1, 3).reshape(3, 4 * n),
+            ymaxc.reshape(4 * n), xmaxc.reshape(4 * n), validc > 0)
+
+
+def compare_lanes_420c(cand_t, nu, nv, y16, x0c, scc, ymaxc, xmaxc,
+                       validc):
+    """The 4:2:0 chroma-pass CompareBlock over 16x16 macroblocks, in the
+    CUDA kernels' layout: cand_t [3, 8, 8, N] (planes 1 and 2 are read);
+    nu, nv [10, 10, N] int32 frozen x16 neighborhoods; y16 [16, 16, N]
+    int32 frozen Y bytes; x0c [2, 2, 3, 8, 8, N] float32; scc
+    [2, 2, 3, N] float32; ymaxc, xmaxc, validc [2, 2, N] int32. Returns
+    [N] float32."""
+    return _compare_420c_folded(
+        cand_t[1], cand_t[2],
+        *fold_aux_420c(nu, nv, y16, x0c, scc, ymaxc, xmaxc, validc))
+
+
+def compare_blocks_lanes420c(cand_u, cand_v, neigh_u_t, neigh_v_t, y16s,
+                             xyb0_s, scales_s, ymax_s, xmax_s, valid_t):
+    """The chroma-pass compare with blocks-leading candidates [N, 64] and
+    the folded state of transpose_aux_420c (the signature of
+    guetzli_tpu/ops/tiles_lanes.compare_blocks_lanes420c)."""
+    def lanes(c):
+        return c.reshape(-1, 8, 8).permute(1, 2, 0)
+    return _compare_420c_folded(lanes(cand_u), lanes(cand_v), neigh_u_t,
+                                neigh_v_t, y16s, xyb0_s, scales_s, ymax_s,
+                                xmax_s, valid_t)
+
+
+def kernel_aux_420c(neigh_u, neigh_v, y16, xyb0_sub, scales_sub, ysel_sub,
+                    xsel_sub, valid_sub):
+    """Frozen 4:2:0 chroma-pass state (blocks leading: [N, 10, 10],
+    [N, 10, 10], [N, 16, 16], [N, 2, 2, 3, 64], [N, 2, 2, 3],
+    [N, 2, 2, 8], [N, 2, 2, 8], [N, 2, 2]) -> the CUDA kernels' layout:
+    lane axis last, sub-blocks as leading dims, all contiguous."""
+    n = neigh_u.shape[0]
+
+    def last(a, dtype=None):
+        a = a if dtype is None else a.to(dtype)
+        return a.permute(tuple(range(1, a.dim())) + (0,)).contiguous()
+
+    i32 = torch.int32
+    return (last(neigh_u, i32), last(neigh_v, i32), last(y16, i32),
+            last(xyb0_sub.reshape(n, 2, 2, 3, 8, 8)), last(scales_sub),
+            last(ysel_sub[..., 7], i32), last(xsel_sub[..., 7], i32),
+            last(valid_sub, i32))
+
+
+def transpose_aux_420c(*aux):
+    """Frozen chroma-pass state -> the folded layout (sub-blocks in the
+    lanes, order (sub_y, sub_x, n); guetzli_tpu/ops/tiles_lanes
+    .transpose_aux_420c)."""
+    return fold_aux_420c(*kernel_aux_420c(*aux))
+
+
+# The plain block compare of each mode over lane-major operands, and the
+# transpose of each mode's frozen state into those operands.
+COMPARE = {"444": compare_lanes, "420y": compare_lanes_420y,
+           "420c": compare_lanes_420c}
+LANE_AUX = {"444": transpose_aux_444, "420y": transpose_aux_420y,
+            "420c": kernel_aux_420c}

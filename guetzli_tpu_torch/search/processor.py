@@ -1,4 +1,5 @@
-"""The Guetzli search: quant-matrix search + frequency masking, 4:4:4.
+"""The Guetzli search: quant-matrix search + frequency masking, 4:4:4 and
+4:2:0, from pixels or from a JPEG's coefficients.
 
 Port of guetzli_tpu/search/processor.py (guetzli/processor.cc), fully
 synchronous: every quant trial and every back-end iteration is one
@@ -10,7 +11,8 @@ as the reference keeps it:
   * TryQuantMatrix (processor.cc:310-338) -> requantize on the host + one
     whole-image compare per candidate matrix;
   * ComputeBlockZeroingOrder loop (:376-487, :643-671) -> one greedy
-    zeroing kernel over all blocks (search/zeroing.py);
+    zeroing kernel over all blocks (search/zeroing.py): one pass for
+    4:4:4, a Y pass and a chroma pass for 4:2:0;
   * the back-end up/down loop (:723-919) -> host loop with a device
     compare + block weights per iteration and native C++ flips.
 """
@@ -34,10 +36,12 @@ from guetzli_tpu_torch.search import zeroing
 
 @dataclass
 class Params:
-    """processor.h:34-42, 4:4:4 output only (the reference's try_420,
-    force_420 and use_silver_screen come with the 4:2:0 slice)."""
+    """processor.h:34-42."""
     butteraugli_target: float = 1.0
     clear_metadata: bool = True
+    try_420: bool = False
+    force_420: bool = False
+    use_silver_screen: bool = False
     zeroing_greedy_lookahead: int = 3
     new_zeroing_model: bool = True
     # The reference's --c fast path stops each block's greedy zeroing once
@@ -293,26 +297,33 @@ class Processor:
                 * jpg.quant[jcomp.quant_idx].values[None, :]
         return blocks, orig
 
-    def masking_aux(self, img):
-        """The pass's frozen per-block state (Comparator.block_state),
-        4:4:4 only. Starts block comparisons on the comparator."""
-        if not img.is_444():
-            raise NotImplementedError(
-                "4:2:0 zeroing is not ported to guetzli_tpu_torch yet")
-        self.comparator.start_block_comparisons()
-        return self.comparator.block_state(1, 1)
+    def masking_aux(self, img, comp_mask, grid):
+        """The pass's zeroing mode and frozen per-block state (see
+        zeroing.loop_inputs). Starts block comparisons on the
+        comparator."""
+        comp = self.comparator
+        comp.start_block_comparisons()
+        if img.is_444():
+            return "444", comp.block_state(1, 1)
+        if comp_mask == 1:
+            return "420y", ((comp.frozen_chroma_blocks(img),)
+                            + comp.block_state(1, 1))
+        return "420c", (comp.frozen_neighborhoods(img)
+                        + (comp.frozen_y_16x16(img, grid.bw, grid.bh),)
+                        + comp.children_state(grid.bw, grid.bh))
 
     def select_frequency_masking(self, jpg, img: st.CoeffImage, comp_mask,
                                  target_mul, stop_early):
         lookahead = self.params.zeroing_greedy_lookahead
+        grid = img.comps[comp_mask.bit_length() - 1]
         blocks, orig = self.masking_inputs(jpg, img, comp_mask)
         with self.stats.timed("zeroing_aux"):
-            aux = self.masking_aux(img)
+            mode, aux = self.masking_aux(img, comp_mask, grid)
         limit32 = np.float32(self.comparator.block_error_limit())
         with self.stats.timed("zeroing_loop"):
             offsets, cand_idx, cand_err = zeroing.compute_zeroing_csr(
                 blocks, orig, limit32, aux, comp_mask,
-                self.comparator.device, lookahead=lookahead,
+                self.comparator.device, mode=mode, lookahead=lookahead,
                 new_model=self.params.new_zeroing_model,
                 early_exit=self.params.zeroing_early_exit, fused=True)
         self.stats.inc("zeroing_passes")
@@ -680,8 +691,12 @@ class Processor:
         if len(jpg_in.components) != 3:
             sys.stderr.write("Only YUV color space input jpeg supported\n")
             return False
-        if not jpg_in.is_444():
-            sys.stderr.write("Only 4:4:4 input is ported so far\n")
+        if jpg_in.is_444():
+            input_is_420 = False
+        elif jpg_in.is_420():
+            input_is_420 = True
+        else:
+            sys.stderr.write("Unsupported sampling factors\n")
             return False
 
         encoded = self.output_jpeg(jpg_in)
@@ -698,8 +713,12 @@ class Processor:
         img = st.CoeffImage.from_jpeg(jpg)
         self._compare(img)
         self.maybe_output(encoded)
+        try_420 = 1 if (input_is_420 or self.params.force_420
+                        or (self.params.try_420
+                            and not _is_grayscale(jpg_in))) else 0
+        force_420 = 1 if (input_is_420 or self.params.force_420) else 0
         try:
-            self._run_search(jpg_in, q_in)
+            self._run_search(jpg_in, q_in, force_420, try_420)
         except Exception as e:   # the reference's resilience model
             # The original/requantized output was emitted before the search
             # started, so a failed search still yields valid output
@@ -711,19 +730,34 @@ class Processor:
                 "search failed (%s); emitting best output so far\n" % e)
         return True
 
-    def _run_search(self, jpg_in, q_in):
-        jpg = _copy_jpeg(jpg_in)
-        st.remove_original_quantization(jpg)
-        img = st.CoeffImage.from_jpeg(jpg)
-        best_q = q_in.copy()
-        with self.stats.timed("select_quant_matrix"):
-            ok = self.select_quant_matrix(jpg, False, best_q, img)
-        if not ok:
-            best_q[:] = 1
-        img.comps = st.CoeffImage.from_jpeg(jpg).comps
-        img.apply_global_quantization(best_q)
-        with self.stats.timed("select_frequency_masking"):
-            self.select_frequency_masking(jpg, img, 7, 1.0, False)
+    def _run_search(self, jpg_in, q_in, force_420, try_420):
+        """processor.cc:986-1016: a 4:4:4 search, a 4:2:0 search, or both
+        (try_420), each ending in MaybeOutput of its candidates. The 4:2:0
+        search runs the Y pass, then the chroma pass."""
+        for downsample in range(force_420, try_420 + 1):
+            jpg = _copy_jpeg(jpg_in)
+            st.remove_original_quantization(jpg)
+            img = st.CoeffImage.from_jpeg(jpg)
+            if downsample:
+                if img.comps[1].factor_x == 1 and img.comps[1].factor_y == 1:
+                    img.downsample(
+                        use_silver_screen=self.params.use_silver_screen)
+                jpg = img.save_to_jpeg_data(jpg)
+            best_q = q_in.copy()
+            with self.stats.timed("select_quant_matrix"):
+                ok = self.select_quant_matrix(jpg, downsample != 0, best_q,
+                                              img)
+            if not ok:
+                best_q[:] = 1
+            img.comps = st.CoeffImage.from_jpeg(jpg).comps
+            img.apply_global_quantization(best_q)
+            with self.stats.timed("select_frequency_masking"):
+                if not downsample:
+                    self.select_frequency_masking(jpg, img, 7, 1.0, False)
+                else:
+                    ymul = 1.0 if len(jpg.components) == 1 else 0.97
+                    self.select_frequency_masking(jpg, img, 1, ymul, False)
+                    self.select_frequency_masking(jpg, img, 6, 1.0, True)
 
 
 def _frame_type_str(img) -> str:
@@ -747,6 +781,87 @@ def _copy_jpeg(jpg: jd.JpegData) -> jd.JpegData:
     out.app_data = list(jpg.app_data)
     out.com_data = list(jpg.com_data)
     return out
+
+
+def _is_grayscale(jpg: jd.JpegData) -> bool:
+    return all(not np.any(jpg.components[c].coeffs) for c in (1, 2))
+
+
+def decode_jpeg_to_rgb(jpg: jd.JpegData):
+    """DecodeJpegToRGB (jpeg_data_decoder.cc:45-53): interleaved sRGB bytes
+    [h, w, 3] uint8 of a 3-component YCbCr 4:4:4 or 4:2:0 JPEG, by the
+    integer pixel path on the CPU; None for other colorspaces or
+    samplings."""
+    import torch
+
+    from guetzli_tpu_torch.codec import reader
+    from guetzli_tpu_torch.ops import image as img_ops
+    if len(jpg.components) != 3 or not reader.has_ycbcr_colorspace(jpg):
+        return None
+    img = st.CoeffImage.from_jpeg(jpg)
+    if jpg.is_444():
+        srgb = img_ops.coeffs_to_srgb(torch.as_tensor(img.coeffs), img.bw,
+                                      img.bh, img.width, img.height)
+    elif jpg.is_420():
+        y, u, v = img.comps
+        srgb = img_ops.coeffs420_to_srgb(
+            torch.as_tensor(y.coeffs), torch.as_tensor(u.coeffs),
+            torch.as_tensor(v.coeffs), y.bw, y.bh, u.bw, u.bh, img.width,
+            img.height)
+    else:
+        return None
+    return srgb.numpy().transpose(1, 2, 0).astype(np.uint8)
+
+
+def process_jpeg_bytes(params: Params, data: bytes,
+                       stats: ProcessStats = None, device="cuda"):
+    """guetzli::Process for JPEG input (processor.cc:1029-1066). Returns
+    the JPEG bytes, or None (after a message on stderr) for an unreadable
+    or unsupported input."""
+    from guetzli_tpu_torch.codec import reader
+    stats = stats or ProcessStats()
+    try:
+        jpg = reader.read_jpeg(data)
+    except reader.JpegError as e:
+        sys.stderr.write("Can't read jpg data from input file: %s\n" % e)
+        return None
+    if not reader.check_jpeg_sanity(jpg):
+        sys.stderr.write("Unsupported input JPEG (unexpectedly large "
+                         "coefficient values).\n")
+        return None
+    rgb = decode_jpeg_to_rgb(jpg)
+    if rgb is None:
+        # ProcessUnsupportedJpegData (processor.cc:1069-1153): CMYK/YCCK,
+        # other samplings (4:2:2, 4:1:1), grayscale and RGB-tagged JPEGs
+        # are decoded to RGB and re-encoded from pixels.
+        return process_unsupported_jpeg_bytes(params, data, stats, device)
+    comparator = None
+    if jpg.width >= 32 and jpg.height >= 32:
+        comparator = Comparator(rgb, jpg.width, jpg.height,
+                                params.butteraugli_target, device)
+    proc = Processor(params, comparator, stats)
+    if not proc.process_jpeg_data(jpg):
+        return None
+    return proc.final.jpeg_data
+
+
+def process_unsupported_jpeg_bytes(params: Params, data: bytes,
+                                   stats: ProcessStats = None,
+                                   device="cuda"):
+    """ProcessUnsupportedJpegData (processor.cc:1069-1153): decode any
+    JPEG the reader parses to RGB (codec/full_decode.py, libjpeg's integer
+    semantics) and encode the pixels."""
+    from guetzli_tpu_torch.codec import full_decode, reader
+    try:
+        jpg = reader.read_jpeg(data)
+        rgb, w, h = full_decode.decode_any_to_rgb(jpg)
+    except (reader.JpegError, ValueError) as e:
+        sys.stderr.write("Can't decode unsupported JPEG: %s\n" % e)
+        return None
+    try:
+        return process_rgb(params, rgb, w, h, stats, device)
+    except ValueError:
+        return None
 
 
 def process_rgb(params: Params, rgb, w, h, stats: ProcessStats = None,

@@ -158,11 +158,44 @@ class CoeffImage:
             c.coeffs = quantize(c.coeffs, q[i][None, :])
             c.quant = q[i].copy()
 
-    def downsample(self) -> None:
-        """OutputImage::Downsample (output_image.cc:535-571), YUV420.
-        Not ported yet: the 4:2:0 path is a later slice of the port."""
-        raise NotImplementedError(
-            "4:2:0 downsampling is not ported to guetzli_tpu_torch yet")
+    def downsample(self, use_silver_screen=False) -> None:
+        """OutputImage::Downsample (output_image.cc:535-571), YUV420, on
+        the host. The silver-screen branch rebuilds the sRGB bytes with the
+        integer pixel path (ops/image.coeffs_to_srgb, on the CPU)."""
+        import torch
+
+        from guetzli_tpu_torch.ops import image as img_ops
+        from guetzli_tpu_torch.search import downsample as ds
+        if self.comps[1].is_all_zero() and self.comps[2].is_all_zero():
+            return
+        if use_silver_screen:
+            srgb = img_ops.coeffs_to_srgb(
+                torch.as_tensor(self.coeffs), self.bw, self.bh,
+                self.width, self.height).numpy()
+            rgb = srgb.transpose(1, 2, 0).astype(np.uint8)
+            yuv = ds.rgb_to_yuv420(rgb, self.width, self.height)
+            planes = [np.asarray(p, np.float32).reshape(
+                self.height, self.width) for p in yuv]
+            for ci, (fx, fy) in ((0, (1, 1)), (1, (2, 2)), (2, (2, 2))):
+                coeffs, _bw, _bh = ds.downsampled_coefficients(
+                    planes[ci], fx, fy)
+                comp = ComponentState.reset(self.width, self.height, fx, fy)
+                comp.coeffs = coeffs.astype(np.int32)
+                self.comps[ci] = comp
+            return
+        yuv = np.stack([
+            ds.to_float_pixels(c.coeffs, c.bw, c.bh, self.width,
+                               self.height)
+            for c in self.comps])
+        yuv = ds.preprocess_channel(self.width, self.height, 2, 1.3, 0.5,
+                                    True, True, yuv)
+        yuv = ds.preprocess_channel(self.width, self.height, 1, 1.3, 0.5,
+                                    True, True, yuv)
+        for ci in (1, 2):
+            coeffs, _bw, _bh = ds.downsampled_coefficients(yuv[ci], 2, 2)
+            comp = ComponentState.reset(self.width, self.height, 2, 2)
+            comp.coeffs = coeffs.astype(np.int32)
+            self.comps[ci] = comp
 
     # -- serialization ------------------------------------------------
 

@@ -1,21 +1,28 @@
-"""Per-block greedy coefficient zeroing, 4:4:4.
+"""Per-block greedy coefficient zeroing: 4:4:4, and the two 4:2:0 passes.
 
 Port of guetzli_tpu/search/zeroing.py (compute_zeroing_csr_staged with the
 fused kernel core). Reference: Processor::ComputeBlockZeroingOrder
 (processor.cc:376-487) and its GPU twin clComputeBlockZeroingOrderEx
 (clguetzli.cl:752-879), which runs one work-item per block.
 
+A mode names the block evaluation (the JAX package's _kmode): "444" for
+8x8 blocks of all channels, "420y" for the 4:2:0 Y pass, "420c" for the
+4:2:0 chroma pass over 16x16 macroblocks.
+
 Host preamble: candidate counts, a descending-count block sort (the
 threads of a warp then run similar trip counts), candidate scores and the
 initial order (a stable row argsort). Device: the greedy loop -- kernel B
-(``fused=True``, the main path) or the staged loop, a whole-tensor loop
-whose per-step evaluation launches kernel A (``fused=False``) -- and the
-CSR compaction of the rails. Both give bit-identical rails on the card.
+of the mode (``fused=True``, the main path) or the staged loop, a
+whole-tensor loop whose per-step evaluation launches the mode's kernel A
+(``fused=False``) -- and the CSR compaction of the rails. Both give
+bit-identical rails on the card.
 
 Output mirrors the reference contract: per block, the order in which AC
 coefficients were zeroed with the (suffix-min) block error after each
 removal, cut off at the block error limit, as CSR arrays.
 """
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -58,16 +65,21 @@ def _argsort_rows_stable(scores):
 
 
 def loop_inputs(blocks, orig_blocks, limit, aux, comp_mask, device,
-                new_model=True):
+                mode="444", new_model=True):
     """The host preamble: the greedy loop's lane-major operands.
 
     blocks, orig_blocks: [NB, 3, 64] int32 numpy (current and original
-    dequantized coefficients); limit: scalar or [NB] float32;
-    aux: (xyb0_tiles [NB, 3, 64] f32, scales [NB, 3] f32, ysel [NB, 8],
-    xsel [NB, 8]) on `device` (Comparator.block_state).
-    Returns (args, perm, inv_perm, limit_np): args are the operands of
-    kernels/zeroing_loop.zeroing_loop in the count-sorted block order
-    `perm`."""
+    dequantized coefficients); limit: scalar or [NB] float32; aux: the
+    pass's frozen per-block state on `device`, blocks leading, as the
+    comparator builds it for `mode`:
+      "444":  (xyb0_tiles [NB, 3, 64] f32, scales [NB, 3] f32,
+               ysel [NB, 8], xsel [NB, 8])  (Comparator.block_state);
+      "420y": (chroma_bytes [NB, 2, 8, 8],) + the "444" state;
+      "420c": (neigh_u, neigh_v [NB, 10, 10], y16 [NB, 16, 16])
+              + Comparator.children_state.
+    Returns (args, perm, inv_perm, limit_np): args = (coeffs_t, order_t,
+    nrem, lim, aux_lanes) are the operands of kernels/zeroing_loop
+    .zeroing_loop in the count-sorted block order `perm`."""
     nb = blocks.shape[0]
     limit = np.asarray(limit, dtype=np.float32)
     chan_ok = np.array([(comp_mask >> c) & 1 for c in range(3)], bool)
@@ -90,39 +102,39 @@ def loop_inputs(blocks, orig_blocks, limit, aux, comp_mask, device,
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
     perm_d = up(perm)
-    x0, sc, ymax, xmax = tl.transpose_aux_444(
-        aux[0][perm_d], aux[1][perm_d],
-        torch.as_tensor(aux[2], device=device)[perm_d],
-        torch.as_tensor(aux[3], device=device)[perm_d])
+    aux_lanes = tl.LANE_AUX[mode](
+        *[torch.as_tensor(a, device=device)[perm_d] for a in aux])
     args = (up(blocks_perm.reshape(nb, K).T.astype(np.int32)), up(order0.T),
-            up(n_cand), x0, sc, ymax, xmax, up(lim_p))
+            up(n_cand), up(lim_p), aux_lanes)
     return args, perm, inv_perm, limit
 
 
 def greedy_rails(blocks, orig_blocks, limit, aux, comp_mask, device,
-                 lookahead=3, new_model=True, early_exit=False, fused=True):
+                 mode="444", lookahead=3, new_model=True, early_exit=False,
+                 fused=True):
     """Run the greedy loop of every block (arguments as loop_inputs).
     Returns (bank_idx, bank_err, perm, inv_perm, limit_np): [NB, K] rails
     on `device` in the count-sorted block order `perm`."""
     args, perm, inv_perm, limit = loop_inputs(
-        blocks, orig_blocks, limit, aux, comp_mask, device, new_model)
+        blocks, orig_blocks, limit, aux, comp_mask, device, mode, new_model)
     if fused:
-        out_idx, out_err = zl.zeroing_loop(*args, lookahead=lookahead,
+        out_idx, out_err = zl.zeroing_loop(*args, mode=mode,
+                                           lookahead=lookahead,
                                            early_exit=early_exit)
     else:
         out_idx, out_err = zl.zeroing_loop_plain(
-            *args, lookahead=lookahead, early_exit=early_exit,
-            evaluate=tile_compare_lanes)
-    check_final_errors(args[0], out_idx, out_err, *args[3:7])
+            *args, mode=mode, lookahead=lookahead, early_exit=early_exit,
+            evaluate=partial(tile_compare_lanes, mode=mode))
+    check_final_errors(args[0], out_idx, out_err, args[4], mode)
     return out_idx.T, out_err.T, perm, inv_perm, limit
 
 
-def check_final_errors(coeffs_t, out_idx, out_err, x0, sc, ymax, xmax):
+def check_final_errors(coeffs_t, out_idx, out_err, aux_lanes, mode="444"):
     """Re-evaluate each block with all its zeroed slots applied, in one
-    kernel A launch, and require the loop's last error bit for bit (both
-    kernels share compare_block.cuh). One evaluation per block against
-    the loop's ~3 per step: a fault in the greedy loop surfaces here as an
-    error instead of a wrong JPEG."""
+    launch of the mode's compare kernel (A, A' or A''), and require the
+    loop's last error bit for bit (the kernels share compare_block.cuh).
+    One evaluation per block against the loop's ~3 per step: a fault in
+    the greedy loop surfaces here as an error instead of a wrong JPEG."""
     n = coeffs_t.shape[1]
     done = torch.isfinite(out_err)                     # [K, N]
     steps = done.sum(0)
@@ -131,13 +143,13 @@ def check_final_errors(coeffs_t, out_idx, out_err, x0, sc, ymax, xmax):
     final = torch.cat([coeffs_t, coeffs_t.new_zeros((1, n))])
     final.scatter_(0, rows, 0)                         # in place: a copy
     errs = tile_compare_lanes(final[:K].reshape(3, 8, 8, n).contiguous(),
-                              x0, sc, ymax, xmax)
+                              *aux_lanes, mode=mode)
     last = out_err.gather(0, (steps - 1).clamp(min=0)[None])[0]
     bad = (steps > 0) & (errs != last)
     if bool(bad.any()):
         raise RuntimeError(
-            "zeroing loop disagrees with the block compare on %d of %d "
-            "blocks" % (int(bad.sum()), n))
+            "zeroing loop (mode %s) disagrees with the block compare on %d "
+            "of %d blocks" % (mode, int(bad.sum()), n))
 
 
 def csr_from_rails(bank_idx, bank_err, perm, inv_perm, limit_np,
@@ -183,8 +195,8 @@ def csr_from_rails(bank_idx, bank_err, perm, inv_perm, limit_np,
 
 
 def compute_zeroing_csr(blocks, orig_blocks, limit, aux, comp_mask, device,
-                        real_index=None, lookahead=3, new_model=True,
-                        early_exit=False, fused=True):
+                        mode="444", real_index=None, lookahead=3,
+                        new_model=True, early_exit=False, fused=True):
     """Greedy zeroing of every block + CSR compaction (the port of
     compute_zeroing_csr_staged). See greedy_rails and csr_from_rails."""
     if blocks.shape[0] == 0:
@@ -192,5 +204,5 @@ def compute_zeroing_csr(blocks, orig_blocks, limit, aux, comp_mask, device,
         return (np.zeros(n + 1, np.int64), np.empty(0, np.int32),
                 np.empty(0, np.float32))
     rails = greedy_rails(blocks, orig_blocks, limit, aux, comp_mask, device,
-                         lookahead, new_model, early_exit, fused)
+                         mode, lookahead, new_model, early_exit, fused)
     return csr_from_rails(*rails, real_index=real_index)

@@ -1,7 +1,8 @@
 """guetzli_tpu_torch end to end on the CPU: codec bytes against the JAX
-package, the PNG reader, the bees q95 encode against the reference
-encoder's golden size, the CLI, and the device rule (the entry points run
-on CUDA unless the CPU is asked for, and never fall back)."""
+package, the PNG reader, the bees q95 encodes (PNG, 4:4:4 and 4:2:0 JPEG,
+forced 4:2:0) against the reference encoder's golden sizes, the CLI, and
+the device rule (the entry points run on CUDA unless the CPU is asked for,
+and never fall back)."""
 
 import io
 import subprocess
@@ -26,6 +27,7 @@ from guetzli_tpu_torch.search.processor import ProcessStats
 
 # Reference-encoder output for bees96x64 at q95 (tests/test_e2e.py).
 REF_96x64_Q95 = 2364
+CORPUS = FIXTURES.parent / "corpus"
 
 
 @pytest.fixture(scope="module")
@@ -90,12 +92,25 @@ def test_small_image_passthrough():
 
 
 def test_jpeg_input_not_ported(tmp_path):
-    jpg = (FIXTURES / "96x64_init.jpg").read_bytes()
-    with pytest.raises(NotImplementedError):
-        api.encode_bytes(jpg, device="cpu")
+    """JPEG input is ported: a 40x40 4:2:0 JPEG goes through
+    api.encode_bytes and through the CLI (exit 0) to the same bytes."""
+    import PIL.Image
+    rgb, _, _ = read_png((FIXTURES / "bees96x64.png").read_bytes())
+    buf = io.BytesIO()
+    PIL.Image.fromarray(np.ascontiguousarray(rgb[:40, :40])).save(
+        buf, "JPEG", quality=90, subsampling=2)
+    stats = ProcessStats()
+    out = api.encode_bytes(buf.getvalue(), 95, stats=stats, device="cpu")
+    assert out[:2] == b"\xff\xd8" and stats.search_error is None
+    assert stats.counters["zeroing_passes"] == 2      # Y and chroma passes
     src = tmp_path / "in.jpg"
-    src.write_bytes(jpg)
+    src.write_bytes(buf.getvalue())
+    assert cli.main(["--cpu", str(src), str(tmp_path / "o.jpg")]) == 0
+    assert (tmp_path / "o.jpg").read_bytes() == out
+    src.write_bytes(b"\xff\xd8 truncated")
     assert cli.main(["--cpu", str(src), str(tmp_path / "o.jpg")]) == 1
+    with pytest.raises(ValueError):
+        api.encode_bytes(b"\xff\xd8 truncated", device="cpu")
 
 
 def test_cli_cpu(tmp_path):
@@ -154,3 +169,68 @@ def test_python_fallbacks_byte_parity(bees_png, monkeypatch):
     monkeypatch.setattr(native, "get_lib", lambda: None)
     got = process_rgb(params, sub, 48, 40, ProcessStats(), "cpu")
     assert got == want
+
+
+def _golden(name, quality=95):
+    """The reference encoder's size for a tests/golden_corpus.txt row."""
+    for line in (FIXTURES.parent / "golden_corpus.txt").read_text() \
+            .splitlines():
+        parts = line.split()
+        if parts and parts[0] == name and int(parts[1]) == quality:
+            return int(parts[2])
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["bees_d-420.jpg",
+                                  "bees_d-progressive.jpg"])
+def test_encode_jpeg_q95_golden(name):
+    """A 4:2:0 JPEG (the two-pass 4:2:0 search: greedy zeroing modes 420y
+    and 420c) and a 4:4:4 progressive one, 97x63, within 2% of the
+    reference encoder's size, at or below the target distance."""
+    from guetzli_tpu_torch import consts
+    from guetzli_tpu_torch.codec import reader
+    stats = ProcessStats()
+    out = api.encode_bytes((CORPUS / name).read_bytes(), 95, stats=stats,
+                           device="cpu")
+    golden = _golden(name)
+    assert abs(len(out) - golden) <= 0.02 * golden, (len(out), golden)
+    assert stats.search_error is None
+    assert stats.final_distance <= consts.butteraugli_score_for_quality(95)
+    back = reader.read_jpeg(out)
+    assert (back.width, back.height) == (97, 63)
+    if "420" in name:
+        assert back.is_420() and stats.counters["zeroing_passes"] == 2
+
+
+def test_force_420_png_smaller_than_444(bees_png, bees_encode):
+    """Params.force_420 from a PNG (CoeffImage.downsample, then both 4:2:0
+    passes) gives a 4:2:0 JPEG smaller than the 4:4:4 encode
+    (tests/test_e2e_420.py::test_force_420_from_png)."""
+    from guetzli_tpu_torch.codec import reader
+    from guetzli_tpu_torch.search.processor import Params
+    out444, _ = bees_encode
+    stats = ProcessStats()
+    out = api.encode_bytes(bees_png, 95, params=Params(force_420=True),
+                           stats=stats, device="cpu")
+    assert stats.search_error is None
+    assert reader.read_jpeg(out).is_420()
+    assert len(out) < len(out444)
+
+
+def test_unsupported_jpeg_takes_the_pixel_path():
+    """A grayscale JPEG is decoded to pixels (codec/full_decode.py) and
+    encoded from them: the bytes equal process_rgb on those pixels."""
+    import PIL.Image
+    from guetzli_tpu_torch import consts
+    from guetzli_tpu_torch.codec import full_decode, reader
+    from guetzli_tpu_torch.search.processor import Params, process_rgb
+    rgb, _, _ = read_png((FIXTURES / "bees96x64.png").read_bytes())
+    buf = io.BytesIO()
+    PIL.Image.fromarray(np.ascontiguousarray(rgb[:40, :40])).convert(
+        "L").save(buf, "JPEG", quality=90)
+    data = buf.getvalue()
+    out = api.encode_bytes(data, 95, device="cpu")
+    pix, w, h = full_decode.decode_any_to_rgb(reader.read_jpeg(data))
+    params = Params()
+    params.butteraugli_target = consts.butteraugli_score_for_quality(95)
+    assert out == process_rgb(params, pix, w, h, ProcessStats(), "cpu")

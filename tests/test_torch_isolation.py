@@ -1,6 +1,7 @@
 """guetzli_tpu_torch stands alone: it imports neither jax nor any module of
-the JAX package guetzli_tpu, and its CUDA kernels are built lazily from
-sources in the package (so the wrappers import on a machine without nvcc).
+the JAX package guetzli_tpu (nor does chip_smoke.py, the port's smoke run
+on the card), and its CUDA kernels are built lazily from sources in the
+package (so the wrappers import on a machine without nvcc).
 """
 
 import ast
@@ -38,7 +39,9 @@ def test_forbidden_is_a_module_name_check():
 
 def test_ast_scan_finds_no_forbidden_import():
     bad = []
-    for path in PKG.rglob("*.py"):
+    paths = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(paths) > 20
+    for path in paths:
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -68,6 +71,10 @@ p = Params()
 p.butteraugli_target = consts.butteraugli_score_for_quality(95)
 out = process_rgb(p, sub, 40, 40, None, "cpu")
 assert out[:2] == b"\xff\xd8"
+from guetzli_tpu_torch import api
+from guetzli_tpu_torch.codec import reader
+out = api.encode_bytes(open(sys.argv[2], "rb").read(), 95, device="cpu")
+assert reader.read_jpeg(out).is_420()
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "guetzli_tpu")]
 print("MODULES", len(mods), "BAD", bad)
@@ -77,7 +84,8 @@ print("MODULES", len(mods), "BAD", bad)
 def test_subprocess_imports_and_encodes_without_jax():
     r = subprocess.run(
         [sys.executable, "-c", _CHILD,
-         str(REPO / "tests" / "fixtures" / "bees96x64.png")],
+         str(REPO / "tests" / "fixtures" / "bees96x64.png"),
+         str(REPO / "tests" / "corpus" / "bees_d-420.jpg")],
         cwd=REPO, capture_output=True, text=True, timeout=300,
         env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stderr[-3000:]
@@ -92,6 +100,19 @@ def test_kernel_sources_listed_and_present():
         assert '#include "compare_block.cuh"' in text
         assert "extern \"C\" int gt_%s(" % name in text
         assert name in build.SIGNATURES
+    for name, (lib, fname, argtypes) in build.SIGNATURES.items():
+        text = (build.CSRC / build.SOURCES[lib]).read_text()
+        assert "extern \"C\" int %s(" % fname in text
+        # Every C parameter is one ctypes argument.
+        decl = text[text.index("int %s(" % fname):]
+        decl = decl[:decl.index(")")]
+        assert decl.count(",") + 1 == len(argtypes), name
+    from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
+    from guetzli_tpu_torch.kernels import zeroing_loop as zl
+    for mod in (ka, zl):
+        assert set(mod.ENTRY) == set(mod.launches) == {"444", "420y",
+                                                       "420c"}
+        assert set(mod.ENTRY.values()) <= set(build.SIGNATURES)
     for h in build.HEADERS:
         assert (build.CSRC / h).exists()
     assert "--fmad=false" in build.NVCC_FLAGS
@@ -127,8 +148,9 @@ def test_build_is_lazy(monkeypatch):
 
 @pytest.mark.gpu
 def test_kernels_on_card():
-    """Kernel A against its plain version and kernel B against the staged
-    loop, on the card (chip_smoke.py runs these at full size)."""
+    """Every compare kernel (A, A', A'') against its plain version and
+    every greedy kernel (B, B', B'') against the staged loop, on the card,
+    at bees96x64 sizes (chip_smoke.py runs them at full size)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     import numpy as np
@@ -137,26 +159,37 @@ def test_kernels_on_card():
     from guetzli_tpu_torch.io.png import read_png
     from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
     from guetzli_tpu_torch.ops import tiles_lanes as tl
+    from guetzli_tpu_torch.search import state as st
     from guetzli_tpu_torch.search import zeroing
+    from guetzli_tpu_torch.search.processor import Params, Processor
     dev = torch.device("cuda")
     rgb, w, h = read_png((REPO / "tests/fixtures/bees96x64.png").read_bytes())
     jpg = encode_rgb_to_jpeg(rgb, w, h, quant=np.full((3, 64), 5, np.int32))
-    cand = np.ascontiguousarray(np.stack(
-        [c.coeffs.astype(np.int32) * 5 for c in jpg.components])
-        .transpose(1, 0, 2))
     comp = Comparator(rgb, w, h, 1.0, dev)
-    comp.start_block_comparisons()
-    aux = comp.block_state(1, 1)
-    x0, sc, ym, xm = tl.transpose_aux_444(*aux)
-    ct = torch.as_tensor(cand, device=dev).reshape(-1, 3, 8, 8) \
-        .permute(1, 2, 3, 0).contiguous()
-    k = ka.tile_compare_lanes(ct, x0, sc, ym, xm)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(k, tl.compare_lanes(ct, x0, sc, ym, xm),
-                               rtol=1e-5, atol=0)
-    a = zeroing.compute_zeroing_csr(cand, cand, np.float32(2.5), aux, 7,
-                                    dev, fused=True)
-    b = zeroing.compute_zeroing_csr(cand, cand, np.float32(2.5), aux, 7,
-                                    dev, fused=False)
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(x, y)
+    st.remove_original_quantization(jpg)
+    img = st.CoeffImage.from_jpeg(jpg)
+    passes = [(img, 7)]
+    img420 = img.copy()
+    img420.downsample()
+    passes += [(img420, 1), (img420, 6)]
+    proc = Processor(Params(), comp, None)
+    for im, mask in passes:
+        grid = im.comps[mask.bit_length() - 1]
+        mode, aux = proc.masking_aux(im, mask, grid)
+        cand = np.zeros((grid.bw * grid.bh, 3, 64), np.int32)
+        for c in range(3):
+            if (mask >> c) & 1:
+                cand[:, c] = im.comps[c].coeffs
+        lanes = tl.LANE_AUX[mode](*aux)
+        ct = torch.as_tensor(cand, device=dev).reshape(-1, 3, 8, 8) \
+            .permute(1, 2, 3, 0).contiguous()
+        k = ka.tile_compare_lanes(ct, *lanes, mode=mode)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(k, tl.COMPARE[mode](ct, *lanes),
+                                   rtol=1e-5, atol=0)
+        a = zeroing.compute_zeroing_csr(cand, cand, np.float32(2.5), aux,
+                                        mask, dev, mode=mode, fused=True)
+        b = zeroing.compute_zeroing_csr(cand, cand, np.float32(2.5), aux,
+                                        mask, dev, mode=mode, fused=False)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)

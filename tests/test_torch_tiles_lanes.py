@@ -151,7 +151,7 @@ def jax_errors(bees_state):
 def _port_errors(port, cand):
     """Kernel A's wrapper on CPU tensors (its plain version)."""
     ct = T(cand).reshape(-1, 3, 8, 8).permute(1, 2, 3, 0).contiguous()
-    before = tcl.launches
+    before = dict(tcl.launches)
     out = tcl.tile_compare_lanes(ct, *tl.transpose_aux_444(
         *port.block_state(1, 1))).numpy()
     assert tcl.launches == before     # the plain version launches nothing

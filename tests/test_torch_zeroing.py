@@ -222,7 +222,7 @@ def test_fused_equals_staged_on_cpu(setup):
     through kernel A's wrapper) give the same CSR; on CPU tensors both
     wrappers run their plain versions and launch nothing."""
     cand, aux = _few_candidates(*setup, k=40)
-    before = zl.launches
+    before = dict(zl.launches)
     a = _port_csr(cand, aux, np.float32(1.5), None, False, fused=True)
     b = _port_csr(cand, aux, np.float32(1.5), None, False, fused=False)
     _assert_csr_equal(a, b)
