@@ -4,31 +4,48 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from guetzli_tpu_torch/csrc with nvcc and holds
-each of the six entry points against its plain PyTorch version at the
+each of the seven entry points against its plain PyTorch version at the
 main paths' shapes, and times them:
 
   * 4:4:4, on tests/corpus/photo_mosaic1.png (1444x908): the block compare
-    A and the greedy zeroing kernel B (mode "444");
+    A and the greedy zeroing kernel B (mode "444"), and the blocks-leading
+    compare C on A's lanes (equal to A bit for bit), then the opt-in
+    greedy pass "444p" (the staged loop with C per step) against B's CSR;
   * 4:2:0, on tests/corpus/photo_mosaic1-420.jpg read by the port's JPEG
     reader: the Y pass (A' and B', mode "420y", comp_mask 1) and the chroma
     pass over 16x16 macroblocks (A'' and B'', mode "420c", comp_mask 6).
 
-Then it drives the main paths end to end through guetzli_tpu_torch.api
-.encode_bytes on the card at quality 95: two PNGs (bees96x64,
-photo_mosaic1) and three JPEGs (bees_d-420, bees_d-progressive,
-photo_mosaic1-420), against the reference encoder's golden sizes
-(tests/golden_corpus.txt, tests/test_e2e.py). Every phase that fails makes
-the script exit nonzero. The last two lines of standard output are the
-kernels' JSON record and {"ok": true, "device": {...}}.
+Then it drives the paths end to end on the card, each with the launch
+counts set to 0 just before it and read just after:
+
+  * the main paths through guetzli_tpu_torch.api.encode_bytes at quality
+    95: two PNGs (bees96x64, photo_mosaic1) and three JPEGs (bees_d-420,
+    bees_d-progressive, photo_mosaic1-420), against the reference
+    encoder's golden sizes (tests/golden_corpus.txt, tests/test_e2e.py);
+  * the tooling: ``cli.main(["--checkcuda", ...])`` on bees96x64.png and
+    bees_d-420.jpg (C and A at 0 mismatches, every stage within the
+    counts tests/test_torch_tooling.py pins on the CPU), and the
+    butteraugli CLI on bees96x64 against the reference's q95 JPEG;
+  * GUETZLI_TPU_PALLAS=1 encodes of the two PNGs (mode "444p": C, not B),
+    which must give the default path's bytes.
+
+Every phase that fails makes the script exit nonzero. The last two lines
+of standard output are the kernels' JSON record and {"ok": true,
+"device": {...}}.
 
 Without a CUDA device, or outside the repository, it exits nonzero and
 prints no result.
 """
 
+import contextlib
+import io
 import json
+import os
 import pathlib
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -46,6 +63,18 @@ E2E = [("tests/fixtures/bees96x64.png", 2364),
 BAND = 0.02
 QUALITY = 95
 MODES = ("444", "420y", "420c")
+
+# --checkcuda's per-stage mismatch counts on bees_d-420.jpg, as
+# tests/test_torch_tooling.py pins them for the port on the CPU (JAX's
+# _stage_checks gives 3 on the first CompareBlock line: one block sits
+# across the 1e-3 tolerance, see that test). The card may count no more.
+CHECKCUDA_420 = {"CompareBlock[104 blocks]": 2,
+                 "CompareBlockLanes[104 blocks]": 3}
+# The butteraugli CLI's distance of bees96x64.png against the reference
+# encoder's q95 JPEG on the CPU (pinned by tests/test_torch_tooling.py),
+# and the band the card is held to around it.
+BUTTERAUGLI_CPU = 0.971314
+BUTTERAUGLI_RTOL = 2e-3
 
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor
 # cores, and HBM3 bandwidth.
@@ -83,6 +112,10 @@ def compare_block_ops(mode):
     # chroma bytes (4 neighbourhood reads, 3 multiplies, 3 adds, 2 shifts
     # and the 2-op dither each) and the color transform; four float
     # stages and the max.
+    if mode == "444p":
+        # Kernel C: mode 444 plus the selection contractions, two passes
+        # over three channels of 64 outputs.
+        return {"float": finish, "int": 3 * idct + ycc + 2 * 3 * 64 * c8}
     up = 2 * 64 * 10
     return {"float": 4 * finish + 4, "int": 2 * idct + 4 * (up + ycc)}
 
@@ -106,6 +139,9 @@ STATE_BYTES = {"444": 192 * 4 + 3 * 4 + 2 * 4,
                "420y": 128 * 4 + 192 * 4 + 3 * 4 + 2 * 4,
                "420c": 200 * 4 + 256 * 4 + 4 * 192 * 4 + 12 * 4 + 12 * 4}
 CAND_BYTES = {"444": 192 * 4, "420y": 64 * 4, "420c": 128 * 4}
+# Kernel C per lane: cand and xyb0 [3, 64], scales [3], sy and sx [8, 8].
+STATE_BYTES["444p"] = 192 * 4 + 3 * 4 + 2 * 64 * 4
+CAND_BYTES["444p"] = 192 * 4
 
 
 def compare_bytes(mode):
@@ -206,11 +242,11 @@ def target():
     return consts.butteraugli_score_for_quality(QUALITY)
 
 
-def phase_compare(mode, state, dev):
-    """The mode's compare kernel (A, A', A'') on the first greedy step's
-    candidates of every block: its three best-scored coefficients each
-    zeroed (lookahead 3), against its plain version."""
-    from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
+def first_step(mode, state, dev):
+    """The first greedy step's candidates of every block: its three
+    best-scored coefficients each zeroed (lookahead 3). Returns (ct
+    [3, 8, 8, 3NB] int32, the mode's lane-major state on those lanes, r:
+    the block of each lane)."""
     from guetzli_tpu_torch.ops import tiles_lanes as tl
     from guetzli_tpu_torch.search import zeroing
     blocks, orig, aux, mask = state
@@ -223,6 +259,15 @@ def phase_compare(mode, state, dev):
     lanes = [a[..., r].contiguous() for a in tl.LANE_AUX[mode](*aux)]
     ct = torch.as_tensor(cand.T.copy(), device=dev).reshape(3, 8, 8, -1) \
         .contiguous()
+    return ct, lanes, r
+
+
+def phase_compare(mode, state, dev):
+    """The mode's compare kernel (A, A', A'') on the first greedy step's
+    candidates of every block, against its plain version."""
+    from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
+    from guetzli_tpu_torch.ops import tiles_lanes as tl
+    ct, lanes, _r = first_step(mode, state, dev)
     n = ct.shape[-1]
     got = ka.tile_compare_lanes(ct, *lanes, mode=mode)
     want = tl.COMPARE[mode](ct, *lanes)
@@ -308,24 +353,111 @@ def phase_greedy(mode, state, dev, plain_reps):
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
 
+def phase_tile_compare(state, dev):
+    """Kernel C on the lanes of phase_compare("444"), moved to blocks
+    leading, with the selection matrices of the block state: against its
+    plain version and against kernel A on the same lanes, both bit for
+    bit."""
+    from guetzli_tpu_torch.kernels import tile_compare as kc
+    from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
+    ct, lanes, r = first_step("444", state, dev)
+    n = ct.shape[-1]
+    _x0, _sc, ysel, xsel = state[2]
+    sy, sx = kc.selection_matrices(ysel[r], xsel[r])
+    args = (ct.permute(3, 0, 1, 2).reshape(n, 3, 64).contiguous(),
+            lanes[0].permute(3, 0, 1, 2).reshape(n, 3, 64).contiguous(),
+            lanes[1].transpose(0, 1).contiguous(), sy, sx)
+    got = kc.tile_compare(*args)
+    want = kc.tile_compare_plain(*args)
+    a = ka.tile_compare_lanes(ct, *lanes)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    same_plain = bool(torch.equal(got, want))
+    same_a = bool(torch.equal(got, a))
+    log("%s vs plain on %d lanes: max abs %.3g, bit-equal %s; bit-equal "
+        "to %s %s" % (kc.ENTRY, n, max_abs, same_plain, ka.ENTRY["444"],
+                      same_a))
+    if not (same_plain and same_a):
+        raise RuntimeError("%s disagrees with its plain version or with "
+                           "kernel A" % kc.ENTRY)
+    ms = time_cuda(lambda: kc.tile_compare(*args), 10)
+    plain_ms = time_cuda(lambda: kc.tile_compare_plain(*args), 3)
+    b_ms, by = bound_ms("444p", n, n * compare_bytes("444p"))
+    log("%s: %.4f ms (median of 10), plain %.3f ms, bound %.4f ms (%s)"
+        % (kc.ENTRY, ms, plain_ms, b_ms, by))
+    return {"name": kc.ENTRY, "route": "cuda",
+            "source": "guetzli_tpu_torch/csrc/tile_compare.cu",
+            "replaces": "guetzli_tpu/kernels/tile_compare.py:430",
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+def phase_greedy_444p(state, dev):
+    """The opt-in greedy pass "444p" on photo_mosaic1: the staged loop
+    with kernel C per step, whose CSR must equal fused B's bit for bit.
+    Returns C's launches in the pass."""
+    from guetzli_tpu_torch.kernels import tile_compare as kc
+    from guetzli_tpu_torch.search import zeroing
+    blocks, orig, aux, mask = state
+    limit = np.float32(target())
+    x0, sc, ysel, xsel = aux
+    aux_p = (x0, sc) + kc.selection_matrices(ysel, xsel)
+    fused = zeroing.compute_zeroing_csr(blocks, orig, limit, aux, mask, dev,
+                                        mode="444", fused=True)
+    kc.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    staged = zeroing.compute_zeroing_csr(blocks, orig, limit, aux_p, mask,
+                                         dev, mode="444p")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = kc.launches
+    same = all(np.array_equal(a, b) for a, b in zip(fused, staged))
+    log("mode 444p (staged loop, %s per step): %.2f s, %d launches of %s; "
+        "CSR (%d candidates) bit-identical to fused B's %s"
+        % (kc.ENTRY, wall, n, kc.ENTRY, len(staged[1]), same))
+    if not same or n == 0:
+        raise RuntimeError("mode 444p: CSR differs from B's or C was not "
+                           "launched")
+    return n
+
+
 def _launch_counts():
+    from guetzli_tpu_torch.kernels import tile_compare as kc
     from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
     from guetzli_tpu_torch.kernels import zeroing_loop as zl
     out = {ka.ENTRY[m]: ka.launches[m] for m in MODES}
     out.update({zl.ENTRY[m]: zl.launches[m] for m in MODES})
+    out[kc.ENTRY] = kc.launches
     return out
 
 
-def phase_e2e(dev):
-    """The main paths: api.encode_bytes on the card, PNG and JPEG in."""
-    from guetzli_tpu_torch import api
-    from guetzli_tpu_torch.codec import reader
+def _reset_launches():
+    from guetzli_tpu_torch.kernels import tile_compare as kc
     from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
     from guetzli_tpu_torch.kernels import zeroing_loop as zl
-    from guetzli_tpu_torch.search.processor import ProcessStats
     for m in MODES:
         ka.launches[m] = 0
         zl.launches[m] = 0
+    kc.launches = 0
+
+
+def _check_golden(path, out, golden):
+    if abs(len(out) - golden) > BAND * golden:
+        raise RuntimeError("%s: %d bytes, outside %d +- 2%%"
+                           % (path, len(out), golden))
+
+
+def phase_e2e(dev):
+    """The main paths: api.encode_bytes on the card, PNG and JPEG in.
+    Returns (launches, path -> output bytes)."""
+    from guetzli_tpu_torch import api
+    from guetzli_tpu_torch.codec import reader
+    from guetzli_tpu_torch.kernels import tile_compare as kc
+    from guetzli_tpu_torch.kernels import zeroing_loop as zl
+    from guetzli_tpu_torch.search.processor import ProcessStats
+    _reset_launches()
+    outputs = {}
     for path, golden in E2E:
         data = (REPO / path).read_bytes()
         stats = ProcessStats()
@@ -351,9 +483,8 @@ def phase_e2e(dev):
             "%s %.2f s" % kv for kv in sorted(stats.timings.items())))
         if stats.search_error is not None:
             raise RuntimeError("search failed: %s" % stats.search_error)
-        if abs(len(out) - golden) > BAND * golden:
-            raise RuntimeError("%s: %d bytes, outside %d +- 2%%"
-                               % (path, len(out), golden))
+        _check_golden(path, out, golden)
+        outputs[path] = out
         if "-420" in path:
             if not reader.read_jpeg(out).is_420():
                 raise RuntimeError("%s: output is not 4:2:0" % path)
@@ -363,10 +494,120 @@ def phase_e2e(dev):
         elif out[:2] != b"\xff\xd8":
             raise RuntimeError("%s: output is not a JPEG" % path)
     launches = _launch_counts()
+    if launches.pop(kc.ENTRY):
+        raise RuntimeError("kernel C was launched on the default path")
     if min(launches.values()) == 0:
         raise RuntimeError("a kernel was not launched on the main paths: %s"
                            % launches)
-    return launches
+    return launches, outputs
+
+
+_REPORT = re.compile(r"^checkcl (.+): (\d+)/(\d+) mismatches", re.M)
+
+
+def phase_checkcuda(dev):
+    """--checkcuda through the CLI on a PNG and on a 4:2:0 JPEG (the image
+    on which the JAX package's run_checkcl fails on the padded block
+    state). Returns C's launches."""
+    from guetzli_tpu_torch import cli
+    from guetzli_tpu_torch.kernels import tile_compare as kc
+    from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
+    c_launches = 0
+    tmp = tempfile.TemporaryDirectory()
+    out_path = pathlib.Path(tmp.name) / "out.jpg"
+    for path, golden in (E2E[0], E2E[2]):
+        _reset_launches()
+        err = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["--checkcuda", str(REPO / path), str(out_path)])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        text = err.getvalue()
+        log("--checkcuda %s: rc %d, %.2f s (check and encode), launches "
+            "%s %d, %s %d\n%s" % (path, rc, wall, kc.ENTRY, kc.launches,
+                                   ka.ENTRY["444"], ka.launches["444"],
+                                   text.rstrip()))
+        if rc != 0:
+            raise RuntimeError("--checkcuda %s exited %d" % (path, rc))
+        _check_golden(path, out_path.read_bytes(), golden)
+        counts = {m.group(1): int(m.group(2))
+                  for m in _REPORT.finditer(text)}
+        for name in ("tile_compare(cuda)", "tile_compare_lanes(cuda)"):
+            if counts.get(name) != 0:
+                raise RuntimeError("--checkcuda %s: %s reports %s"
+                                   % (path, name, counts.get(name)))
+        if kc.launches == 0 or ka.launches["444"] == 0:
+            raise RuntimeError("--checkcuda: C or A was not launched")
+        pinned = CHECKCUDA_420 if "-420" in path else {}
+        over = {k: v for k, v in counts.items() if v > pinned.get(k, 0)}
+        # 9 blurs, 16 other stages, the two kernels.
+        if len(counts) != 27 or over:
+            raise RuntimeError("--checkcuda %s: %d stage lines, over the "
+                               "pinned counts: %s" % (path, len(counts),
+                                                      over))
+        c_launches += kc.launches
+    tmp.cleanup()
+    return c_launches
+
+
+def phase_butteraugli(dev):
+    """The butteraugli CLI on the card: bees96x64 against the reference
+    encoder's q95 JPEG of it."""
+    from guetzli_tpu_torch import butteraugli_cli
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = butteraugli_cli.main([
+            str(REPO / "tests/fixtures/bees96x64.png"),
+            str(REPO / "tests/fixtures/bees96x64_ref_q95.jpg")])
+    d = float(out.getvalue().strip()) if rc == 0 else float("nan")
+    rel = abs(d - BUTTERAUGLI_CPU) / BUTTERAUGLI_CPU
+    log("butteraugli_cli bees96x64 vs its reference q95 JPEG: %.6f (CPU "
+        "%.6f, rel %.2e), %.2f s" % (d, BUTTERAUGLI_CPU, rel,
+                                     time.time() - t0))
+    if not (rel <= BUTTERAUGLI_RTOL and 0.5 < d < 1.2):
+        raise RuntimeError("butteraugli distance %r outside its band" % d)
+
+
+def phase_444p_e2e(dev, default_out):
+    """GUETZLI_TPU_PALLAS=1 encodes of the two PNGs: mode "444p" runs C
+    and not B, and gives the default path's bytes. Returns C's
+    launches."""
+    from guetzli_tpu_torch import api
+    from guetzli_tpu_torch.kernels import tile_compare as kc
+    from guetzli_tpu_torch.kernels import zeroing_loop as zl
+    old = os.environ.get("GUETZLI_TPU_PALLAS")
+    os.environ["GUETZLI_TPU_PALLAS"] = "1"
+    c_launches = 0
+    try:
+        for path, golden in E2E[:2]:
+            _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = api.encode_bytes((REPO / path).read_bytes(),
+                                   quality=QUALITY, device=dev)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            log("GUETZLI_TPU_PALLAS=1 %s q%d: %.2f s, %d bytes (default "
+                "path %d), launches %s %d, %s %d"
+                % (path, QUALITY, wall, len(out), len(default_out[path]),
+                   kc.ENTRY, kc.launches, zl.ENTRY["444"],
+                   zl.launches["444"]))
+            _check_golden(path, out, golden)
+            if out != default_out[path]:
+                raise RuntimeError("%s: mode 444p gives other bytes" % path)
+            if kc.launches == 0 or zl.launches["444"] != 0:
+                raise RuntimeError("%s: mode 444p must launch C and not B"
+                                   % path)
+            c_launches += kc.launches
+    finally:
+        if old is None:
+            del os.environ["GUETZLI_TPU_PALLAS"]
+        else:
+            os.environ["GUETZLI_TPU_PALLAS"] = old
+    return c_launches
 
 
 def main():
@@ -383,7 +624,14 @@ def main():
             records.append(phase_compare(mode, state, dev))
             records.append(phase_greedy(mode, state, dev,
                                         1 if mode == "420c" else 3))
-    launches = phase_e2e(dev)
+            if mode == "444":
+                records.append(phase_tile_compare(state, dev))
+                phase_greedy_444p(state, dev)
+    launches, outputs = phase_e2e(dev)
+    # Kernel C's paths: --checkcuda and the opt-in 444p search.
+    launches["tile_compare"] = (phase_checkcuda(dev)
+                                + phase_444p_e2e(dev, outputs))
+    phase_butteraugli(dev)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     print(json.dumps({"kernels": records}))

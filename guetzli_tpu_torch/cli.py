@@ -7,8 +7,13 @@ The input is a PNG or a JPEG (a 4:2:0 JPEG is searched at 4:2:0). Runs on
 the CUDA device; --cpu runs on the CPU instead. --c/--opencl/--cuda select
 the reference's accelerated-mode trade-off: each block's greedy zeroing
 stops once its error reaches the block error limit (processor.cc:458-465).
+--checkcuda (alias --checkcl) first runs the kernel verification of
+checkcl.py on the input image (the clguetzli_test.cpp analog) and prints
+its report to stderr; --profile DIR writes a torch.profiler Chrome trace
+of the run to DIR/trace.json.
 """
 
+import os
 import sys
 
 from guetzli_tpu_torch import consts
@@ -27,6 +32,11 @@ Flags:
                - Stop each block's zeroing search at the error limit
                  (faster, slightly larger output).
   --cpu        - Run on the CPU instead of the CUDA device.
+  --checkcuda, --checkcl
+               - First verify the butteraugli stages and the block compare
+                 kernels on the input image (report on standard error).
+  --profile D  - Write a torch.profiler Chrome trace of the run to
+                 D/trace.json.
 """
 
 # Host-memory guard: the reference's contract values (guetzli.cc:42-45).
@@ -50,29 +60,33 @@ def _check_memory(pixels, memlimit_mb) -> bool:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    verbose = False
-    fast_zeroing = False
-    device = None
-    quality = K_DEFAULT_QUALITY
-    memlimit_mb = K_DEFAULT_MEMLIMIT_MB
+    opts = {"verbose": False, "fast_zeroing": False, "check": False,
+            "device": None, "quality": K_DEFAULT_QUALITY,
+            "memlimit_mb": K_DEFAULT_MEMLIMIT_MB}
+    profile_dir = None
     i = 0
     try:
         while i < len(argv) and argv[i].startswith("-") and argv[i] != "-":
             flag = argv[i]
             if flag == "--verbose":
-                verbose = True
+                opts["verbose"] = True
             elif flag == "--quality":
                 i += 1
-                quality = int(argv[i])
+                opts["quality"] = int(argv[i])
             elif flag == "--memlimit":
                 i += 1
-                memlimit_mb = int(argv[i])
+                opts["memlimit_mb"] = int(argv[i])
             elif flag == "--nomemlimit":
-                memlimit_mb = -1
+                opts["memlimit_mb"] = -1
             elif flag in ("--c", "--opencl", "--cuda"):
-                fast_zeroing = True
+                opts["fast_zeroing"] = True
+            elif flag in ("--checkcl", "--checkcuda"):
+                opts["check"] = True
             elif flag == "--cpu":
-                device = "cpu"
+                opts["device"] = "cpu"
+            elif flag == "--profile":
+                i += 1
+                profile_dir = argv[i]
             else:
                 sys.stderr.write(_USAGE)
                 return 1
@@ -83,7 +97,43 @@ def main(argv=None) -> int:
     if len(argv) - i != 2:
         sys.stderr.write(_USAGE)
         return 1
-    in_name, out_name = argv[i], argv[i + 1]
+    if profile_dir is None:
+        return _run(argv[i], argv[i + 1], **opts)
+    # gperftools analog (guetzli.cc:32-34): trace the whole run, the
+    # card's activity too when the run is on it.
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if opts["device"] != "cpu" and torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        return _run(argv[i], argv[i + 1], **opts)
+    finally:
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
+def _pixels(data):
+    """(rgb, w, h) of a JPEG for the kernel check, decoded as the encoder
+    decodes it; None when the reader rejects the file (the encode that
+    follows reports why)."""
+    from guetzli_tpu_torch.codec import full_decode, reader
+    from guetzli_tpu_torch.search.processor import decode_jpeg_to_rgb
+    try:
+        jpg = reader.read_jpeg(data)
+        rgb = decode_jpeg_to_rgb(jpg)
+        if rgb is None:
+            return full_decode.decode_any_to_rgb(jpg)
+    except (reader.JpegError, ValueError):
+        return None
+    return rgb, jpg.width, jpg.height
+
+
+def _run(in_name, out_name, verbose, fast_zeroing, check, device, quality,
+         memlimit_mb) -> int:
     if in_name == "-":
         data = sys.stdin.buffer.read()
     else:
@@ -114,6 +164,13 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         sys.stderr.write("%s\n" % e)
         return 1
+    if check:
+        # Runtime dual-execution verification of the kernels on this input
+        # (clguetzli_test.cpp analog); the report goes to stderr.
+        from guetzli_tpu_torch.checkcl import run_checkcl
+        pix = _pixels(data) if is_jpeg(data) else (rgb, w, h)
+        if pix is not None:
+            run_checkcl(*pix, device=dev)
     params = Params()
     params.butteraugli_target = consts.butteraugli_score_for_quality(quality)
     params.zeroing_early_exit = fast_zeroing

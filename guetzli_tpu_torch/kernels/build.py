@@ -22,10 +22,11 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-# Library name -> its source file; compare_block.cuh is included by both.
+# Library name -> its source file; compare_block.cuh is included by all.
 SOURCES = {
     "tile_compare_lanes": "tile_compare_lanes.cu",
     "zeroing_loop": "zeroing_loop.cu",
+    "tile_compare": "tile_compare.cu",
 }
 HEADERS = ("compare_block.cuh",)
 
@@ -37,9 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Entry point -> (library, C function, ctypes argument types): every
 # pointer and the stream as c_void_p. A compare takes (candidates, state
-# pointers..., tables, out, n, stream); a greedy loop takes (coeffs,
-# order, nrem, lim, state pointers..., tables, out_idx, out_err, n,
-# lookahead, early_exit, stream).
+# pointers..., tables, out, n, stream), kernel C's state being (xyb0,
+# scales, sy, sx); a greedy loop takes (coeffs, order, nrem, lim, state
+# pointers..., tables, out_idx, out_err, n, lookahead, early_exit,
+# stream).
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
@@ -57,6 +59,7 @@ SIGNATURES = {
                           [_P] * 12 + [_I, _I, _I, _P]),
     "zeroing_loop_420c": ("zeroing_loop", "gt_zeroing_loop_420c",
                           [_P] * 15 + [_I, _I, _I, _P]),
+    "tile_compare": ("tile_compare", "gt_tile_compare", [_P] * 7 + [_I, _P]),
 }
 
 _loaded = {}

@@ -1,17 +1,32 @@
-"""Frozen per-block state for the 4:4:4 block compare.
+"""Per-8x8-tile state and the blocks-leading CompareBlock.
 
-SwitchBlock (butteraugli_comparator.cc:85-111): each 8x8 pixel block of
-the original image gets its own opsin tile (pixels sampled with
-coordinates clamped to the image, then an 8x8-confined opsin transform),
-and the right/bottom image-edge replication of ToPixels
-(output_image.cc:86-97) is encoded per block as clamped index vectors.
+Frozen per-block state (SwitchBlock, butteraugli_comparator.cc:85-111):
+each 8x8 pixel block of the original image gets its own opsin tile
+(pixels sampled with coordinates clamped to the image, then an
+8x8-confined opsin transform), and the right/bottom image-edge
+replication of ToPixels (output_image.cc:86-97) is encoded per block as
+clamped index vectors.
+
+The blocks-leading compare (port of guetzli_tpu/ops/tiles.py,
+tiles_to_linear_rgb and compare_blocks): candidate coefficients ->
+integer IDCT -> edge replication -> YCbCr->RGB bytes -> linear RGB ->
+8x8 opsin -> MaskHighIntensityChange confined to the tile -> block diff
+-> masked error, batched over a leading block axis. It is the whole-tensor
+form (matmul contractions, tensor means); the per-lane fixed-order form
+that the CUDA kernels equal is ops/tiles_lanes.py. --checkcuda holds
+kernels C and A against this one.
 """
 
 import numpy as np
 import torch
 
 from guetzli_tpu_torch import consts
+from guetzli_tpu_torch.ops import blockdiff as bd
+from guetzli_tpu_torch.ops import fp
+from guetzli_tpu_torch.ops import image as img_ops
+from guetzli_tpu_torch.ops.diffmap import _mhic_mix
 from guetzli_tpu_torch.ops.opsin import opsin_dynamics_blocks
+from guetzli_tpu_torch.ops.tiles_lanes import BLOCK_EDGE_W, ONE_MINUS_EDGE_W
 
 
 def original_opsin_tiles(rgb, w, h, bw, bh, device):
@@ -43,3 +58,95 @@ def edge_gather_indices(bw, bh, w, h):
     xsel = np.minimum(ix[None, :], xmax[:, None])
     ysel = np.minimum(ix[None, :], ymax[:, None])
     return ysel, xsel
+
+
+def _tile_border_masks():
+    """Validity masks [8, 8] of the four 1-pixel shifts inside a tile:
+    neighbour at x-1, x+1, y-1, y+1."""
+    ones = np.ones((8, 8), dtype=bool)
+    left = ones.copy()
+    left[:, 0] = False
+    right = ones.copy()
+    right[:, -1] = False
+    up = ones.copy()
+    up[0, :] = False
+    down = ones.copy()
+    down[-1, :] = False
+    return left, right, up, down
+
+
+_BORDER_MASKS = _tile_border_masks()
+
+
+def mask_high_intensity_change_tiles(t0, t1):
+    """MaskHighIntensityChange on [..., 3, 8, 8] tiles (butteraugli.cc:791
+    at xsize=ysize=8, as CompareBlock calls it: neighbour visibility stops
+    at the tile border)."""
+    ave = (t0 + t1) * 0.5
+    y = ave[..., 1, :, :]
+
+    def sq_shift(dy, dx, valid):
+        shifted = torch.roll(y, shifts=(-dy, -dx), dims=(-2, -1))
+        d = shifted - y
+        return torch.where(torch.as_tensor(valid, device=y.device), d * d,
+                           torch.full_like(d, -1.0))
+
+    left, right, up, down = _BORDER_MASKS
+    sqr_max = torch.maximum(
+        torch.maximum(sq_shift(0, -1, left), sq_shift(0, 1, right)),
+        torch.maximum(sq_shift(-1, 0, up), sq_shift(1, 0, down)))
+    mix = _mhic_mix(y, sqr_max).movedim(0, -3)
+    return mix * t0 + (1.0 - mix) * ave, mix * t1 + (1.0 - mix) * ave
+
+
+def edge_replicate(v, ysel, xsel):
+    """Right/bottom image-edge byte replication of ToPixels
+    (output_image.cc:86-97) on integer tiles v [..., 8, 8]: rows past the
+    tile's ymax copy row ymax, then columns past xmax copy column xmax.
+    ysel, xsel: [...sel, 8] clamped index vectors min(i, max); their
+    leading dims are v's minus any channel-like axes between them and the
+    trailing [8, 8] (broadcast over those)."""
+    extra = v.dim() - ysel.dim() - 1
+    iy = torch.arange(8, dtype=torch.int32, device=v.device)
+    ymax = ysel[..., 7:8]
+    xmax = xsel[..., 7:8]
+    oh_y = (iy == ymax).to(v.dtype)                      # [...sel, 8]
+    oh_x = (iy == xmax).to(v.dtype)
+    my = iy <= ymax
+    mx = iy <= xmax
+    for _ in range(extra):
+        oh_y, oh_x = oh_y.unsqueeze(-2), oh_x.unsqueeze(-2)
+        my, mx = my.unsqueeze(-2), mx.unsqueeze(-2)
+    row = (oh_y[..., :, None] * v).sum(-2)               # [..., 8] over x
+    v = torch.where(my[..., :, None], v, row[..., None, :])
+    col = (oh_x[..., None, :] * v).sum(-1)               # [..., 8] over y
+    return torch.where(mx[..., None, :], v, col[..., None])
+
+
+def tiles_to_linear_rgb(coeff_tiles, xsel, ysel):
+    """Dequantized coefficient tiles [..., 3, 64] int32 (YCbCr) -> linear
+    RGB tiles [..., 3, 8, 8] float32. xsel, ysel: [..., 8] int32 clamped
+    pixel indices of the edge replication. For factor-1 components the
+    x16 pixel cache and its parity dither round-trip to the IDCT bytes, so
+    the bytes are the IDCT values."""
+    v = img_ops.idct_blocks(coeff_tiles)
+    v = edge_replicate(v.reshape(v.shape[:-1] + (8, 8)), ysel, xsel)
+    rgb = img_ops.ycbcr_to_rgb(v[..., 0, :, :], v[..., 1, :, :],
+                               v[..., 2, :, :])           # stacks on axis 0
+    return img_ops.srgb_to_linear(rgb.movedim(0, -3))
+
+
+def compare_blocks(xyb0_tiles, cand_lin, scale):
+    """Batched CompareBlock core (butteraugli_comparator.cc:113-163).
+
+    xyb0_tiles: [N, 3, 64] original opsin tiles (stored flat); cand_lin:
+    [N, 3, 8, 8] linear RGB of the candidates; scale: [N, 3] whole-image
+    mask values at each block's top-left pixel. Returns [N] float32."""
+    xyb0 = xyb0_tiles.reshape(xyb0_tiles.shape[:-1] + (8, 8))
+    xyb1 = opsin_dynamics_blocks(cand_lin)
+    m0, m1 = mask_high_intensity_change_tiles(xyb0, xyb1)
+    dc, ac, edge = bd.block_diff(m0.reshape(m0.shape[:-2] + (64,)),
+                                 m1.reshape(m1.shape[:-2] + (64,)))
+    diff = ((dc + ac) * scale).sum(-1)
+    diff_edge = (edge * scale).sum(-1)
+    return fp.sqrt(ONE_MINUS_EDGE_W * diff + BLOCK_EDGE_W * diff_edge)

@@ -25,12 +25,13 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from guetzli_tpu_torch import consts, native
+from guetzli_tpu_torch import config, consts, native
 from guetzli_tpu_torch.codec import histograms as hg
 from guetzli_tpu_torch.codec import jpeg_data as jd
 from guetzli_tpu_torch.codec import writer as jwriter
 from guetzli_tpu_torch.codec.encoder import encode_rgb_to_jpeg
 from guetzli_tpu_torch.comparator import Comparator
+from guetzli_tpu_torch.kernels import tile_compare
 from guetzli_tpu_torch.search import state as st
 from guetzli_tpu_torch.search import zeroing
 
@@ -304,6 +305,11 @@ class Processor:
         comp = self.comparator
         comp.start_block_comparisons()
         if img.is_444():
+            if config.pallas() == 1:
+                # Opt-in: the staged loop with kernel C per step.
+                xyb0_tiles, scales, ysel, xsel = comp.block_state(1, 1)
+                sy, sx = tile_compare.selection_matrices(ysel, xsel)
+                return "444p", (xyb0_tiles, scales, sy, sx)
             return "444", comp.block_state(1, 1)
         if comp_mask == 1:
             return "420y", ((comp.frozen_chroma_blocks(img),)

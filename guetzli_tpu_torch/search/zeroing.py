@@ -7,7 +7,11 @@ fused kernel core). Reference: Processor::ComputeBlockZeroingOrder
 
 A mode names the block evaluation (the JAX package's _kmode): "444" for
 8x8 blocks of all channels, "420y" for the 4:2:0 Y pass, "420c" for the
-4:2:0 chroma pass over 16x16 macroblocks.
+4:2:0 chroma pass over 16x16 macroblocks. "444p" (opt-in,
+GUETZLI_TPU_PALLAS=1) is "444" evaluated by kernel C over blocks-leading
+operands with the edge replication as selection matrices; it always runs
+the staged loop (the JAX package keeps matrix-aux modes off its fused
+kernel too), and its rails equal mode "444"'s bit for bit.
 
 Host preamble: candidate counts, a descending-count block sort (the
 threads of a warp then run similar trip counts), candidate scores and the
@@ -28,11 +32,24 @@ import numpy as np
 import torch
 
 from guetzli_tpu_torch import consts
+from guetzli_tpu_torch.kernels import tile_compare as kc
 from guetzli_tpu_torch.kernels import zeroing_loop as zl
 from guetzli_tpu_torch.kernels.tile_compare_lanes import tile_compare_lanes
 from guetzli_tpu_torch.ops import tiles_lanes as tl
 
 K = 192  # 3 * 64 candidate slots per block
+
+
+def _lane_aux(mode):
+    """The transpose of a mode's frozen state into the loop's operands."""
+    return kc.lanes_aux if mode == "444p" else tl.LANE_AUX[mode]
+
+
+def _compare_kernel(mode):
+    """The mode's block compare kernel over lane-major candidates: C for
+    "444p", else A, A' or A''."""
+    return (kc.compare_lanes if mode == "444p"
+            else partial(tile_compare_lanes, mode=mode))
 
 
 def candidate_scores_host(blocks, orig_blocks, comp_mask, new_model=True):
@@ -76,7 +93,9 @@ def loop_inputs(blocks, orig_blocks, limit, aux, comp_mask, device,
                ysel [NB, 8], xsel [NB, 8])  (Comparator.block_state);
       "420y": (chroma_bytes [NB, 2, 8, 8],) + the "444" state;
       "420c": (neigh_u, neigh_v [NB, 10, 10], y16 [NB, 16, 16])
-              + Comparator.children_state.
+              + Comparator.children_state;
+      "444p": (xyb0_tiles, scales, sy [NB, 8, 8], sx [NB, 8, 8])
+              (kernels/tile_compare.selection_matrices).
     Returns (args, perm, inv_perm, limit_np): args = (coeffs_t, order_t,
     nrem, lim, aux_lanes) are the operands of kernels/zeroing_loop
     .zeroing_loop in the count-sorted block order `perm`."""
@@ -102,7 +121,7 @@ def loop_inputs(blocks, orig_blocks, limit, aux, comp_mask, device,
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
     perm_d = up(perm)
-    aux_lanes = tl.LANE_AUX[mode](
+    aux_lanes = _lane_aux(mode)(
         *[torch.as_tensor(a, device=device)[perm_d] for a in aux])
     args = (up(blocks_perm.reshape(nb, K).T.astype(np.int32)), up(order0.T),
             up(n_cand), up(lim_p), aux_lanes)
@@ -113,25 +132,26 @@ def greedy_rails(blocks, orig_blocks, limit, aux, comp_mask, device,
                  mode="444", lookahead=3, new_model=True, early_exit=False,
                  fused=True):
     """Run the greedy loop of every block (arguments as loop_inputs).
+    Mode "444p" runs the staged loop whatever `fused` says.
     Returns (bank_idx, bank_err, perm, inv_perm, limit_np): [NB, K] rails
     on `device` in the count-sorted block order `perm`."""
     args, perm, inv_perm, limit = loop_inputs(
         blocks, orig_blocks, limit, aux, comp_mask, device, mode, new_model)
-    if fused:
+    if fused and mode != "444p":
         out_idx, out_err = zl.zeroing_loop(*args, mode=mode,
                                            lookahead=lookahead,
                                            early_exit=early_exit)
     else:
         out_idx, out_err = zl.zeroing_loop_plain(
             *args, mode=mode, lookahead=lookahead, early_exit=early_exit,
-            evaluate=partial(tile_compare_lanes, mode=mode))
+            evaluate=_compare_kernel(mode))
     check_final_errors(args[0], out_idx, out_err, args[4], mode)
     return out_idx.T, out_err.T, perm, inv_perm, limit
 
 
 def check_final_errors(coeffs_t, out_idx, out_err, aux_lanes, mode="444"):
     """Re-evaluate each block with all its zeroed slots applied, in one
-    launch of the mode's compare kernel (A, A' or A''), and require the
+    launch of the mode's compare kernel (A, A', A'' or C), and require the
     loop's last error bit for bit (the kernels share compare_block.cuh).
     One evaluation per block against the loop's ~3 per step: a fault in
     the greedy loop surfaces here as an error instead of a wrong JPEG."""
@@ -142,8 +162,8 @@ def check_final_errors(coeffs_t, out_idx, out_err, aux_lanes, mode="444"):
                                                              dtype=torch.long))
     final = torch.cat([coeffs_t, coeffs_t.new_zeros((1, n))])
     final.scatter_(0, rows, 0)                         # in place: a copy
-    errs = tile_compare_lanes(final[:K].reshape(3, 8, 8, n).contiguous(),
-                              *aux_lanes, mode=mode)
+    errs = _compare_kernel(mode)(
+        final[:K].reshape(3, 8, 8, n).contiguous(), *aux_lanes)
     last = out_err.gather(0, (steps - 1).clamp(min=0)[None])[0]
     bad = (steps > 0) & (errs != last)
     if bool(bad.any()):

@@ -148,15 +148,17 @@ def test_build_is_lazy(monkeypatch):
 
 @pytest.mark.gpu
 def test_kernels_on_card():
-    """Every compare kernel (A, A', A'') against its plain version and
+    """Every compare kernel (A, A', A'', C) against its plain version and
     every greedy kernel (B, B', B'') against the staged loop, on the card,
-    at bees96x64 sizes (chip_smoke.py runs them at full size)."""
+    at bees96x64 sizes (chip_smoke.py runs them at full size); kernel C
+    also against A, and the staged loop with C (mode 444p) against B."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     import numpy as np
     from guetzli_tpu_torch.codec.encoder import encode_rgb_to_jpeg
     from guetzli_tpu_torch.comparator import Comparator
     from guetzli_tpu_torch.io.png import read_png
+    from guetzli_tpu_torch.kernels import tile_compare as kc
     from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
     from guetzli_tpu_torch.ops import tiles_lanes as tl
     from guetzli_tpu_torch.search import state as st
@@ -192,4 +194,21 @@ def test_kernels_on_card():
         b = zeroing.compute_zeroing_csr(cand, cand, np.float32(2.5), aux,
                                         mask, dev, mode=mode, fused=False)
         for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+        if mode != "444":
+            continue
+        x0, sc, ysel, xsel = aux
+        sy, sx = kc.selection_matrices(ysel, xsel)
+        args = (torch.as_tensor(cand, device=dev), x0.contiguous(), sc, sy,
+                sx)
+        before = kc.launches
+        c = kc.tile_compare(*args)
+        torch.cuda.synchronize()
+        assert kc.launches == before + 1
+        assert torch.equal(c, kc.tile_compare_plain(*args))
+        assert torch.equal(c, k)
+        p = zeroing.compute_zeroing_csr(cand, cand, np.float32(2.5),
+                                        (x0, sc, sy, sx), mask, dev,
+                                        mode="444p")
+        for x, y in zip(a, p):
             np.testing.assert_array_equal(x, y)
