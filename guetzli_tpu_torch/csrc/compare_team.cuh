@@ -1,0 +1,376 @@
+// The block evaluation of compare_block.cuh done by a team of threads:
+// one unit of 64 threads (one pixel or one contraction output per thread)
+// per 8x8 block, every intermediate in shared memory. Used by the
+// greedy kernels B and B'' (zeroing_loop.cu).
+//
+// Replaces, with compare_block.cuh's per-thread chain, the evaluation of
+// the TPU kernel guetzli_tpu/kernels/zeroing_loop.py (_greedy_kernel,
+// :146; zeroing_loop_lanes, :301) in modes "444" and "420c".
+//
+// Bound. Operations: ~5*10^4 float operations per float stage on ~1.5 KB
+// of per-block state (PERF.md). The per-thread design ran one block's
+// whole loop in one thread: 255 registers, a ~9.5 KB stack in local
+// memory, and one thread per block (5,187 threads for B'' on 132 SMs,
+// about 1.2 warps per SM). Here a block's 192 coefficients, its order
+// list, its frozen state and every intermediate live in shared memory, a
+// unit's thread holds only its pixel's values and its rows of the four
+// constant 8x8 matrices in registers, and B'' runs a candidate's four
+// sub-blocks side by side. Small CTAs (one or four units) let 16 or 4 of
+// them share an SM, so one CTA's barriers and one-thread tails are
+// hidden by the others.
+//
+// Numerics. The same bits as compare_block.cuh: every 8-point contraction
+// output is computed by one thread in the plain version's fixed order,
+// and every sum the plain version takes sequentially (column means,
+// edges, wsum, the three-channel diff) is taken sequentially by one
+// thread: eight threads take one 8-term partial each and one thread adds
+// the eight in order, which is the plain order. No tree reductions, warp
+// shuffles or atomics; built with --fmad=false.
+//
+// Barriers. Every thread of the CTA calls every function below that
+// contains __syncthreads(); a unit whose B'' sub-block is invalid passes
+// active = false and skips the arithmetic only.
+
+#pragma once
+
+#include "compare_block.cuh"
+
+namespace gtt {
+
+constexpr int UNIT = 64;  // threads per unit
+
+// A unit's float scratch in shared memory, in floats.
+constexpr int F_LIN = 0;     // [3][64] linear RGB; then m0 - m1
+constexpr int F_TMP = 192;   // [3][64] blur along y; then ave of Y [64];
+                             // then the four |DFT|^2 [4][64] (with F_BLUR)
+constexpr int F_BLUR = 384;  // [3][64] blurred; then (m0 + m1) / 2 of Y
+constexpr int F_T1 = 576;    // [4][2][64] first DFT pass (re, im)
+constexpr int F_PART = 1088; // [64] partial sums (see finish_team)
+constexpr int F_UNIT = 1152;
+
+// Row q = p & 7 of the four constant matrices, kept in registers: every
+// contraction below takes its matrix row from the thread's low 3 bits.
+struct Rows {
+  float blur[8], re[8], im[8];
+  int idct[8];
+};
+
+__device__ __forceinline__ void load_rows(const float* T, int q, Rows& R) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    R.blur[j] = T[T_BLUR + q * 8 + j];
+    R.re[j] = T[T_DFT_RE + q * 8 + j];
+    R.im[j] = T[T_DFT_IM + q * 8 + j];
+    R.idct[j] = (int)T[T_IDCT + q * 8 + j];
+  }
+}
+
+// First IDCT pass of one channel, output (i, x) = (lo, hi):
+// col[i*8 + x] = (sum_j idct[i][j] * c[j*8 + x] + 2^10) >> 11, where c is
+// the block's coefficients with slot `zero` (channel-relative) zeroed.
+__device__ __forceinline__ int idct_col(const int* c, int zero, int hi,
+                                        const Rows& R) {
+  int acc = R.idct[0] * (zero == hi ? 0 : c[hi]);
+#pragma unroll
+  for (int j = 1; j < 8; ++j) {
+    int k = j * 8 + hi;
+    acc += R.idct[j] * (zero == k ? 0 : c[k]);
+  }
+  return (acc + (1 << 10)) >> 11;
+}
+
+// Second IDCT pass, output (y, i) = (hi, lo): the clipped byte.
+__device__ __forceinline__ int idct_row(const int* col, int hi,
+                                        const Rows& R) {
+  int acc = R.idct[0] * col[hi * 8];
+#pragma unroll
+  for (int j = 1; j < 8; ++j) acc += R.idct[j] * col[hi * 8 + j];
+  acc = (acc + (257 << 17)) >> 18;
+  return acc < 0 ? 0 : (acc > 255 ? 255 : acc);
+}
+
+// Mode 444 pixel stage of one unit (one candidate): the block's
+// coefficients c [192] with slot `zero` zeroed -> IDCT -> edge replication
+// -> linear RGB in LIN [3][64]. ib: the unit's int scratch [2][192] (IDCT
+// columns, then bytes). Three barriers.
+__device__ __forceinline__ void pixel_444_team(const int* c, int zero,
+                                               int* ib, float* LIN,
+                                               int ymax, int xmax,
+                                               const float* T, const Rows& R,
+                                               int p) {
+  const int hi = p >> 3, lo = p & 7;
+  for (int ch = 0; ch < 3; ++ch)
+    ib[ch * 64 + lo * 8 + hi] = idct_col(c + ch * 64, zero - ch * 64, hi, R);
+  __syncthreads();
+  for (int ch = 0; ch < 3; ++ch)
+    ib[192 + ch * 64 + p] = idct_row(ib + ch * 64, hi, R);
+  __syncthreads();
+  const int sy = hi <= ymax ? hi : ymax, sx = lo <= xmax ? lo : xmax;
+  const int q = sy * 8 + sx;
+  const int* v = ib + 192;
+  gtk::store_linear(LIN, p,
+                    gtk::ycc_to_linear(v[q], v[64 + q], v[128 + q], T));
+  __syncthreads();
+}
+
+// Mode 420c pixel stage of one candidate's group of four units (one per
+// 8x8 sub-block s of the 16x16 macroblock). g: the thread's index in the
+// group (0..255); ib: the candidate's int scratch [2][2][64] (Cb and Cr
+// IDCT columns, then bytes), computed by the group's first two units
+// whether their sub-blocks are valid or not; nu, nv [10][10], y16
+// [16][16]: the frozen state in shared memory; LIN: the unit's linear RGB
+// [3][64]. active: sub-block s is valid. Three barriers.
+__device__ __forceinline__ void pixel_420c_team(
+    const int* c, int zero, int* ib, float* LIN, int s, const int* nu,
+    const int* nv, const int* y16, int ymax, int xmax, const float* T,
+    const Rows& R, int g, bool active) {
+  const int p = g & 63, ch = g >> 6, hi = p >> 3, lo = p & 7;
+  const int base = 64 + ch * 64;  // Cb at 64, Cr at 128
+  if (ch < 2)
+    ib[ch * 64 + lo * 8 + hi] = idct_col(c + base, zero - base, hi, R);
+  __syncthreads();
+  if (ch < 2)
+    ib[128 + ch * 64 + p] = idct_row(ib + ch * 64, hi, R);
+  __syncthreads();
+  if (active) {
+    const int yy = (s >> 1) * 8 + (hi <= ymax ? hi : ymax);
+    const int xx = (s & 1) * 8 + (lo <= xmax ? lo : xmax);
+    gtk::store_linear(
+        LIN, p,
+        gtk::ycc_to_linear(y16[yy * 16 + xx],
+                           gtk::up_byte(ib + 128, nu, 1, yy, xx),
+                           gtk::up_byte(ib + 192, nv, 1, yy, xx), T));
+  }
+  __syncthreads();
+}
+
+// The float stage (compare_block.cuh finish_block) by one unit. U: the
+// unit's scratch, U[F_LIN..] holding the candidate's linear RGB; x0: the
+// original opsin tile [3][64] in shared memory; sc: its three scales; p:
+// the thread's index in the unit. Thread 0 of an active unit writes the
+// block error to *err. Seven barriers.
+__device__ __forceinline__ void finish_team(float* U,
+                                            const float* x0,
+                                            const float* sc,
+                                            const float* T, const Rows& R,
+                                            int p, bool active, float* err) {
+  const float* S = T + T_SCAL;
+  float* LIN = U + F_LIN;
+  float* TMP = U + F_TMP;
+  float* BL = U + F_BLUR;
+  float* T1 = U + F_T1;
+  float* PART = U + F_PART;
+  float* F = U + F_TMP;  // [4][64]: X, Z, Y average, Y difference
+  const int hi = p >> 3, lo = p & 7;
+
+  // 1. Blur along y: TMP[c][i*8 + x] = sum_j B[i][j] * LIN[c][j*8 + x].
+  if (active) {
+    for (int ch = 0; ch < 3; ++ch) {
+      const float* l = LIN + ch * 64;
+      float acc = R.blur[0] * l[hi];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) acc = acc + R.blur[j] * l[j * 8 + hi];
+      TMP[ch * 64 + lo * 8 + hi] = acc;
+    }
+  }
+  __syncthreads();
+  // 2. Blur along x: BL[c][y*8 + i] = sum_j B[i][j] * TMP[c][y*8 + j].
+  if (active) {
+    for (int ch = 0; ch < 3; ++ch) {
+      const float* m = TMP + ch * 64 + hi * 8;
+      float acc = R.blur[0] * m[0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) acc = acc + R.blur[j] * m[j];
+      BL[ch * 64 + p] = acc;
+    }
+  }
+  __syncthreads();
+  // 3. Opsin dynamics of pixel p, and its average with the original.
+  float xyb[3], t0[3], ave[3];
+  if (active) {
+    float cur[3];
+    for (int k = 0; k < 3; ++k) {
+      const float* m = S + S_MIX + 3 * k;
+      float pre = gtk::mix3(m, BL[p], BL[64 + p], BL[128 + p]) +
+                  S[S_BIAS + k];
+      float sens = gtk::gamma_fn(S, pre) / pre;
+      cur[k] = (gtk::mix3(m, LIN[p], LIN[64 + p], LIN[128 + p]) +
+                S[S_BIAS + k]) *
+               sens;
+    }
+    for (int k = 0; k < 3; ++k) {
+      xyb[k] = gtk::mix3(S + S_XYB + 3 * k, cur[0], cur[1], cur[2]);
+      t0[k] = x0[k * 64 + p];
+      ave[k] = (t0[k] + xyb[k]) * 0.5f;
+    }
+    TMP[p] = ave[1];
+  }
+  __syncthreads();
+  // 4. MaskHighIntensityChange of pixel (y, x) = (hi, lo): LIN <- m0 - m1,
+  // BL[0..63] <- (m0 + m1) / 2 of Y.
+  if (active) {
+    const float yc = ave[1];
+    float d;
+    d = (lo >= 1) ? TMP[p - 1] - yc : 0.0f;
+    float sl = (lo >= 1) ? d * d : -1.0f;
+    d = (lo <= 6) ? TMP[p + 1] - yc : 0.0f;
+    float sr = (lo <= 6) ? d * d : -1.0f;
+    d = (hi >= 1) ? TMP[p - 8] - yc : 0.0f;
+    float su = (hi >= 1) ? d * d : -1.0f;
+    d = (hi <= 6) ? TMP[p + 8] - yc : 0.0f;
+    float sd = (hi <= 6) ? d * d : -1.0f;
+    float sqr_max = gtk::max_nan(gtk::max_nan(sl, sr), gtk::max_nan(su, sd));
+    const float red0 = S[S_RED], red1 = S[S_RED + 1], red2 = S[S_RED + 2];
+    const float chroma = S[S_CHROMA];
+    float chroma_scale = chroma / (yc + chroma);
+    float mix[3];
+    mix[0] = (chroma_scale * red0) / (sqr_max + red0);
+    mix[1] = red1 / (sqr_max + red1);
+    mix[2] = (chroma_scale * red2) / (sqr_max + red2);
+    for (int ch = 0; ch < 3; ++ch) {
+      float a = (1.0f - mix[ch]) * ave[ch];
+      float m0 = mix[ch] * t0[ch] + a;
+      float m1 = mix[ch] * xyb[ch] + a;
+      LIN[ch * 64 + p] = m0 - m1;
+      if (ch == 1) BL[p] = (m0 + m1) * 0.5f;
+    }
+  }
+  __syncthreads();
+  // 5. First DFT pass of the four inputs (X and Z half differences, Y
+  // average, Y half difference), output (u, y) = (lo, hi).
+  if (active) {
+    for (int d = 0; d < 4; ++d) {
+      const float* src = (d == 2) ? BL
+                         : LIN + (d == 0 ? 0 : d == 1 ? 128 : 64);
+      const float* xr = src + hi * 8;
+      float x = (d == 2) ? xr[0] : xr[0] * 0.5f;
+      float ar = R.re[0] * x;
+      float ai = R.im[0] * x;
+#pragma unroll
+      for (int j = 1; j < 8; ++j) {
+        x = (d == 2) ? xr[j] : xr[j] * 0.5f;
+        ar = ar + R.re[j] * x;
+        ai = ai + R.im[j] * x;
+      }
+      T1[d * 128 + lo * 8 + hi] = ar;
+      T1[d * 128 + 64 + lo * 8 + hi] = ai;
+    }
+  }
+  __syncthreads();
+  // 6. Second pass, output (u, v) = (hi, lo): F[d][u*8 + v] = |.|^2 * mul.
+  if (active) {
+    const float mul = S[S_FFTMUL];
+    for (int d = 0; d < 4; ++d) {
+      const float* tr = T1 + d * 128 + hi * 8;
+      const float* ti = tr + 64;
+      float rr = R.re[0] * tr[0];
+      float ii = R.im[0] * ti[0];
+      float ir = R.im[0] * tr[0];
+      float ri = R.re[0] * ti[0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) {
+        rr = rr + R.re[j] * tr[j];
+        ii = ii + R.im[j] * ti[j];
+        ir = ir + R.im[j] * tr[j];
+        ri = ri + R.re[j] * ti[j];
+      }
+      float gr = rr - ii;
+      float gi = ir + ri;
+      F[d * 64 + p] = (gr * gr + gi * gi) * mul;
+    }
+  }
+  __syncthreads();
+  // 7. Partial sums, each sequential: PART[0..23] the wsum column sums
+  // of X, Z and the Y value (computed here, 8 pixels a thread);
+  // PART[24..47] the column means of m0 - m1 per channel; PART[48..59]
+  // the four edge means per channel.
+  if (active) {
+    const float* D = T + T_CSF;
+    if (p < 24) {
+      const int v = p & 7, which = p >> 3;
+      const float rng = S[S_YLIM];
+      const float ymul2 = S[S_ACY2];
+      float s = 0.0f;
+      for (int u = 0; u < 8; ++u) {
+        const int q = u * 8 + v;
+        float val;
+        if (which < 2) {
+          val = F[which * 64 + q];
+        } else {
+          float a = sqrtf(F[128 + q]);
+          float h = sqrtf(F[192 + q]);
+          float y0 = gtk::remove_range(a - h, rng);
+          float y1 = gtk::remove_range(a + h, rng);
+          const float* hf = S + S_HFDY;
+          float valy = S[S_ACY] * (gtk::pw_progression(hf, y0 * ymul2) -
+                                   gtk::pw_progression(hf, y1 * ymul2));
+          val = valy * valy;
+        }
+        float term = D[q] * val;
+        s = (u == 0) ? term : s + term;
+      }
+      PART[p] = s;
+    } else if (p < 48) {
+      const int ch = (p - 24) >> 3, x = (p - 24) & 7;
+      const float* dd = LIN + ch * 64;
+      float s = dd[x];
+      for (int y = 1; y < 8; ++y) s = s + dd[y * 8 + x];
+      PART[p] = s * 0.125f;
+    } else if (p < 60) {
+      const int k = (p - 48) / 3, ch = (p - 48) % 3;
+      const float* dd = LIN + ch * 64;
+      // Column x=0, row y=0, column x=7, row y=7.
+      const int first = (k == 2) ? 7 : (k == 3) ? 56 : 0;
+      const int step = (k == 1 || k == 3) ? 1 : 8;
+      float e = dd[first];
+      for (int i = 1; i < 8; ++i) e = e + dd[first + i * step];
+      PART[p] = e * 0.125f;
+    }
+  }
+  __syncthreads();
+  // 8. The block error, by thread 0 (the caller's barrier follows).
+  if (active && p == 0) {
+    const float csf0 = S[S_CSF0];
+    float avg[3];
+    for (int ch = 0; ch < 3; ++ch) {
+      float s = PART[24 + ch * 8];
+      for (int x = 1; x < 8; ++x) s = s + PART[24 + ch * 8 + x];
+      avg[ch] = s * 0.125f;
+    }
+    float dc[3], edge[3], qx, qy, qz;
+    gtk::low_freq_sq(S, avg[0], avg[1], avg[2], &qx, &qy, &qz);
+    dc[0] = qx * csf0;
+    dc[1] = qy * csf0;
+    dc[2] = qz * csf0;
+    float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+    for (int k = 0; k < 4; ++k) {
+      const float* e = PART + 48 + k * 3;
+      gtk::low_freq_sq(S, e[0], e[1], e[2], &qx, &qy, &qz);
+      sx = (k == 0) ? qx : sx + qx;
+      sy = (k == 0) ? qy : sy + qy;
+      sz = (k == 0) ? qz : sz + qz;
+    }
+    edge[0] = sx * csf0;
+    edge[1] = sy * csf0;
+    edge[2] = sz * csf0;
+    float ac[3];
+    for (int w = 0; w < 3; ++w) {
+      float total = PART[w * 8];
+      for (int v = 1; v < 8; ++v) total = total + PART[w * 8 + v];
+      ac[w] = total;
+    }
+    // PART rows: X, Z, Y.
+    const float acx = ac[0] * S[S_ACX];
+    const float acz = ac[1] * S[S_ACZ];
+    const float acy = ac[2];
+    float diff = (dc[0] + acx) * sc[0];
+    diff = diff + (dc[1] + acy) * sc[1];
+    diff = diff + (dc[2] + acz) * sc[2];
+    float diff_edge = edge[0] * sc[0];
+    diff_edge = diff_edge + edge[1] * sc[1];
+    diff_edge = diff_edge + edge[2] * sc[2];
+    *err = sqrtf(S[S_1MEW] * diff + S[S_EW] * diff_edge);
+  }
+}
+
+}  // namespace gtt

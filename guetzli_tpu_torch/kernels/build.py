@@ -22,13 +22,14 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-# Library name -> its source file; compare_block.cuh is included by all.
+# Library name -> its source file; compare_block.cuh is included by all,
+# compare_team.cuh by zeroing_loop.cu.
 SOURCES = {
     "tile_compare_lanes": "tile_compare_lanes.cu",
     "zeroing_loop": "zeroing_loop.cu",
     "tile_compare": "tile_compare.cu",
 }
-HEADERS = ("compare_block.cuh",)
+HEADERS = ("compare_block.cuh", "compare_team.cuh")
 
 # --fmad=false: each multiply and add rounds on its own, as the plain
 # PyTorch versions' separate tensor ops do (csrc/compare_block.cuh).
@@ -41,7 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # pointers..., tables, out, n, stream), kernel C's state being (xyb0,
 # scales, sy, sx); a greedy loop takes (coeffs, order, nrem, lim, state
 # pointers..., tables, out_idx, out_err, n, lookahead, early_exit,
-# stream).
+# stream); the geometry query takes (mode, &threads, &smem_bytes,
+# &ctas_per_sm).
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
@@ -59,6 +61,8 @@ SIGNATURES = {
                           [_P] * 12 + [_I, _I, _I, _P]),
     "zeroing_loop_420c": ("zeroing_loop", "gt_zeroing_loop_420c",
                           [_P] * 15 + [_I, _I, _I, _P]),
+    "zeroing_loop_geometry": ("zeroing_loop", "gt_zeroing_loop_geometry",
+                              [_I, _P, _P, _P]),
     "tile_compare": ("tile_compare", "gt_tile_compare", [_P] * 7 + [_I, _P]),
 }
 

@@ -5,12 +5,14 @@ The kernels of guetzli_tpu_torch/csrc run only on the card (chip_smoke.py
 and the gpu-marked test hold them there). Their logic -- the operand
 layouts, the three modes' pixel stages, the greedy loop -- is plain C++
 apart from a few CUDA keywords, so this test compiles the same sources
-with g++ behind a small shim (the keywords defined away, each launch
-``k<<<grid, threads, ...>>>(args)`` rewritten as a loop over the grid
-that runs the kernel once per (block, thread)) and calls the same C entry
-points on CPU tensors. The loop runs the grid twice: a block's threads
-run one after another here, so the first pass only fills the shared
-table each thread loads its share of.
+with g++ behind a small shim and calls the same C entry points on CPU
+tensors. The shim defines the keywords away and rewrites each launch
+``k<<<grid, threads, smem, ...>>>(args)`` as a call that runs the grid's
+CTAs one after another, each CTA's threads as fibers that run
+concurrently between barriers: ``__syncthreads()`` returns once every
+thread of the CTA has reached it, and a barrier that some threads skip
+fails the launch. The team kernels B and B'' (one CTA per block, their
+state in shared memory) rely on that.
 
 With -ffp-contract=off (the card's build uses --fmad=false) and IEEE
 division and sqrt on both sides, the host-built kernels equal the plain
@@ -45,22 +47,117 @@ from guetzli_tpu_torch.search.processor import (Params, Processor,
 CPU = torch.device("cpu")
 CORPUS = FIXTURES.parent / "corpus"
 
-_SHIM = """#pragma once
+_SHIM = r"""#pragma once
+// The CUDA keywords the kernels use, for g++. A launch runs the grid's
+// CTAs one after another; a CTA's threads run as fibers (ucontext), each
+// until its next __syncthreads(), which returns once every thread of the
+// CTA has reached the same barrier. A barrier that some threads skip or
+// reach at another line fails the launch (cudaGetLastError() != 0).
 #include <cmath>
+#include <cstdlib>
+#include <cstring>
+#include <functional>
+#include <vector>
+#include <ucontext.h>
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __shared__ static
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 struct dim3v { unsigned x, y, z; };
 static dim3v threadIdx, blockIdx, blockDim;
-inline void __syncthreads() {}
 typedef struct CUstream_st* cudaStream_t;
-inline int cudaGetLastError() { return 0; }
+typedef int cudaError_t;
+enum {
+  cudaSuccess = 0,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 9,
+  cudaSharedmemCarveoutMaxShared = 100
+};
 struct float3 { float x, y, z; };
+struct float4 { float x, y, z, w; };
 inline float3 make_float3(float x, float y, float z) {
   return float3{x, y, z};
 }
+static unsigned char* gt_dynamic_smem;
+static int gt_launch_error;
+inline int cudaGetLastError() {
+  int e = gt_launch_error;
+  gt_launch_error = 0;
+  return e;
+}
+template <class K>
+inline int cudaFuncSetAttribute(K, int, int) { return 0; }
+template <class K>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int,
+                                                         size_t) {
+  *n = 1;
+  return 0;
+}
+namespace gt_shim {
+struct Fiber {
+  ucontext_t ctx;
+  std::vector<char> stack;
+  int state;  // 0 runnable, 1 at a barrier, 2 finished
+  int line;   // the barrier's source line
+};
+static ucontext_t sched;
+static Fiber* cur;
+static const std::function<void()>* body;
+static void entry() {
+  (*body)();
+  cur->state = 2;
+  swapcontext(&cur->ctx, &sched);
+}
+inline void sync(int line) {
+  cur->state = 1;
+  cur->line = line;
+  swapcontext(&cur->ctx, &sched);
+}
+inline void launch(unsigned grid, unsigned threads, size_t smem,
+                   const std::function<void()>& fn) {
+  body = &fn;
+  std::vector<Fiber> fib(threads);
+  for (auto& f : fib) f.stack.resize(1 << 15);
+  std::vector<unsigned char> dyn(smem + 16);
+  gt_dynamic_smem = dyn.data() + (16 - (size_t)dyn.data() % 16) % 16;
+  blockDim.x = threads;
+  for (unsigned b = 0; b < grid; ++b) {
+    blockIdx.x = b;
+    std::memset(gt_dynamic_smem, 0xff, smem);  // NaN floats, -1 ints
+    for (auto& f : fib) {
+      getcontext(&f.ctx);
+      f.ctx.uc_stack.ss_sp = f.stack.data();
+      f.ctx.uc_stack.ss_size = f.stack.size();
+      f.ctx.uc_link = nullptr;
+      makecontext(&f.ctx, entry, 0);
+      f.state = 0;
+    }
+    // Each round runs every thread to its next barrier, in alternating
+    // order, so that a missing barrier shows as a wrong result.
+    for (unsigned round = 0;; ++round) {
+      for (unsigned i = 0; i < threads; ++i) {
+        unsigned t = (round & 1) ? threads - 1 - i : i;
+        if (fib[t].state == 2) continue;
+        cur = &fib[t];
+        threadIdx.x = t;
+        fib[t].state = 0;
+        swapcontext(&sched, &fib[t].ctx);
+      }
+      unsigned done = 0, same = 0;
+      for (auto& f : fib) {
+        done += f.state == 2;
+        same += f.state == 1 && f.line == fib[0].line;
+      }
+      if (done == threads) break;
+      if (same != threads) {
+        gt_launch_error = 999;
+        return;
+      }
+    }
+  }
+}
+}  // namespace gt_shim
+#define __syncthreads() gt_shim::sync(__LINE__)
 """
 
 
@@ -78,18 +175,29 @@ def _split_top(s):
 
 
 def _host_source(text):
-    def launch(m):
-        grid, threads = _split_top(m.group(2))[:2]
-        return ("for (int _p = 0; _p < 2; ++_p) "
-                "for (unsigned _b = 0; _b < (unsigned)(%s); ++_b) "
-                "for (unsigned _t = 0; _t < (unsigned)(%s); ++_t) { "
-                "blockIdx.x = _b; threadIdx.x = _t; blockDim.x = %s; %s("
-                % (grid, threads, threads, m.group(1)))
-    text, n = re.subn(r"(\w+)<<<(.*?)>>>\(", launch, text, flags=re.S)
+    """Each ``k<<<grid, threads[, smem, stream]>>>(args);`` becomes
+    ``gt_shim::launch(grid, threads, smem, [&] { k(args); });`` and each
+    ``extern __shared__ T name[];`` a name for the launch's buffer."""
+    text = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                  r"#define \2 ((\1*)gt_dynamic_smem)", text)
+    out, pos, n = [], 0, 0
+    for m in re.finditer(r"(\w+)<<<(.*?)>>>\(", text, flags=re.S):
+        if m.start() < pos:
+            continue
+        depth, i = 1, m.end()
+        while depth:
+            depth += (text[i] == "(") - (text[i] == ")")
+            i += 1
+        assert text[i] == ";"
+        cfg = _split_top(m.group(2)) + ["0"]
+        out.append(text[pos:m.start()])
+        out.append("gt_shim::launch(%s, %s, %s, [&] { %s(%s); });"
+                   % (cfg[0], cfg[1], cfg[2], m.group(1),
+                      text[m.end():i - 1]))
+        pos = i + 1
+        n += 1
     assert n >= 1
-    # Close the loop body after the launch statement.
-    return re.sub(r"(blockDim\.x = [^;]*; \w+\([^;]*?\);)", r"\1 }", text,
-                  flags=re.S)
+    return "".join(out) + text[pos:]
 
 
 @pytest.fixture(scope="module")
@@ -213,3 +321,76 @@ def test_host_built_tile_compare_equals_plain(host_libs, states):
     lanes = tl.transpose_aux_444(x0[rep], sc[rep], ysel[rep], xsel[rep])
     assert torch.equal(out, tl.compare_blocks_lanes444(cand, *lanes))
     assert bool(torch.isfinite(out).all()) and float(out.max()) > 0
+
+
+_TEAM_CASES = [(m, la, e) for m in ("444", "420c") for la in (1, 2, 3, 4)
+               for e in (False, True)]
+
+
+@pytest.mark.parametrize(
+    "mode,lookahead,early", _TEAM_CASES,
+    ids=["%s-%d-%s" % (m, la, "early" if e else "full")
+         for m, la, e in _TEAM_CASES])
+def test_host_built_team_kernels_equal_plain(host_libs, states, mode,
+                                             lookahead, early):
+    """The team kernels B and B'' (one CTA per block, its state in shared
+    memory) against the plain loop, rails bit for bit, at each lookahead
+    up to one past the default 3, with and without early exit. Mode 444
+    runs an odd subset of bees_d's blocks: the five longest loops, every fourth of the
+    rest and blocks with 1 and 0 candidates; mode 420c all 28 macroblocks
+    of bees_d-420, whose last column has invalid sub-blocks."""
+    blocks, aux, mask = states[mode]
+    limit = np.float32(4.0 if mode == "444" else 3.0)
+    if mode == "444":
+        args, perm, _inv, _lim = zeroing.loop_inputs(
+            blocks, blocks, limit, aux, mask, CPU, mode)
+        nrem = args[2].numpy()
+        pos = np.unique(np.concatenate([
+            np.arange(5), np.arange(5, len(nrem), 4),
+            np.flatnonzero(nrem == 1)[:2], np.flatnonzero(nrem == 0)[:2]]))
+        sel = perm[pos]
+        blocks = blocks[sel]
+        aux = [a[torch.as_tensor(sel)] for a in aux]
+    args, _perm, _inv, _lim = zeroing.loop_inputs(
+        blocks, blocks, limit, aux, mask, CPU, mode)
+    coeffs_t, order_t, nrem, lim, lanes = args
+    n = coeffs_t.shape[1]
+    assert n % 2 == 1 or mode == "420c"
+    assert {0, 1} <= set(nrem.tolist())
+    if mode == "420c":
+        assert int(lanes[-1].reshape(4, n).sum(0).min()) < 4
+    tab = tables.build(CPU)
+    out_idx = torch.empty((192, n), dtype=torch.int32)
+    out_err = torch.empty((192, n))
+    rc = _entry(host_libs, zl.ENTRY[mode])(
+        coeffs_t.data_ptr(), order_t.data_ptr(), nrem.data_ptr(),
+        lim.data_ptr(), *[a.data_ptr() for a in lanes], tab.data_ptr(),
+        out_idx.data_ptr(), out_err.data_ptr(), n, lookahead, int(early),
+        None)
+    assert rc == 0
+    want_idx, want_err = zl.zeroing_loop_plain(
+        coeffs_t, order_t, nrem, lim, lanes, mode, lookahead=lookahead,
+        early_exit=early)
+    assert torch.equal(out_idx, want_idx)
+    assert torch.equal(out_err, want_err)
+    steps = torch.isfinite(out_err).sum(0)
+    if early:
+        assert bool((steps < nrem).any())   # some block stopped early
+    else:
+        assert torch.equal(steps, nrem.clamp(max=192).to(steps.dtype))
+    zeroing.check_final_errors(coeffs_t, out_idx, out_err, lanes, mode)
+
+
+def test_host_team_geometry(host_libs):
+    """The geometry entry point of the team kernels: one unit of 64
+    threads per 8x8 block (B: one, B'': four), the dynamic shared memory
+    of each CTA within the 48 KB a launch may take without asking."""
+    fn = _entry(host_libs, "zeroing_loop_geometry")
+    got = []
+    for mode in (0, 1):
+        vals = [ctypes.c_int(-1) for _ in range(3)]
+        assert fn(mode, *[ctypes.byref(v) for v in vals]) == 0
+        got.append([v.value for v in vals])
+    assert [g[0] for g in got] == [64, 256]
+    assert 0 < got[0][1] < got[1][1] <= 48 * 1024
+    assert all(g[2] == 1 for g in got)
