@@ -16,10 +16,11 @@ main paths' shapes, and times them:
     pass over 16x16 macroblocks (A'' and B'', mode "420c", comp_mask 6).
 
 The greedy kernels' rails must equal the plain loop's on every block
-row. For the team kernels B and B'' (one CTA per block) it also prints
-the launch geometry (threads and shared memory per CTA, CTAs per SM) and
-ptxas's registers and stack, and records the share of the operation
-bound; its log line sets the time beside the per-thread design's.
+row. For the team kernels (B, B' and B'', one CTA per block, and A'',
+one CTA per macroblock) it also prints the launch geometry (threads and
+shared memory per CTA, CTAs per SM) and ptxas's registers and stack, and
+records the share of the operation bound; its log line sets the time
+beside the per-thread design's.
 
 Then it drives the paths end to end on the card, each with the launch
 counts set to 0 just before it and read just after:
@@ -87,11 +88,12 @@ BUTTERAUGLI_RTOL = 2e-3
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
-# The greedy kernels B and B'' of the per-thread design (one thread runs a
-# block's whole loop), ms on an NVIDIA H100 80GB HBM3 at 700 W, at the
-# shapes of phase_greedy (PERF.md, section 6), for the log only: the
-# kernels' JSON record holds this run's numbers alone.
-PREV_MS = {"444": 150.3, "420c": 267.7}
+# The team kernels in their per-thread design (one thread runs a block's
+# whole loop or compare), ms on an NVIDIA H100 80GB HBM3 at 700 W, at the
+# shapes of phase_greedy and phase_compare (PERF.md, section 6), for the
+# log only: the kernels' JSON record holds this run's numbers alone.
+PREV_MS = {"zeroing_loop": 150.3, "zeroing_loop_420c": 267.7,
+           "zeroing_loop_420y": 57.25, "tile_compare_lanes_420c": 1.507}
 
 
 def log(*a):
@@ -228,6 +230,25 @@ def ptxas_report(text):
     return out
 
 
+def team_report(rec, lib, geo, what):
+    """Logs a team kernel's geometry and ptxas report (from the build of
+    library `lib`) beside the per-thread design's time, and adds them and
+    the bound share to its JSON record `rec`."""
+    from guetzli_tpu_torch.kernels import build
+    name = rec["name"]
+    ptx = ptxas_report(build.build_log.get(lib, {}).get("ptxas", "")) \
+        .get(name + "_kernel", {})
+    log("%s (team kernel, one CTA per %s): %d threads and %d B of shared "
+        "memory per CTA, %d CTAs per SM; ptxas %s; %.2fx the per-thread "
+        "design's %.4g ms"
+        % (name, what, geo["threads"], geo["smem_bytes"], geo["ctas_per_sm"],
+           ptx or "not built in this run", PREV_MS[name] / rec["ms"],
+           PREV_MS[name]))
+    rec.update(bound_share=rec["bound_ms"] / rec["ms"],
+               threads_per_cta=geo["threads"], smem_per_cta=geo["smem_bytes"],
+               ctas_per_sm=geo["ctas_per_sm"], ptxas=ptx)
+
+
 def mosaic444(dev):
     """photo_mosaic1's coefficients as the encoder starts from them and its
     comparator's frozen block state: (blocks, orig, mode, aux, mask)."""
@@ -317,6 +338,9 @@ def phase_compare(mode, state, dev):
         % (name, n, max_abs, max_rel, equal))
     if not max_rel <= 1e-5:
         raise RuntimeError("%s disagrees with its plain version" % name)
+    if mode in ka.TEAM and not equal:
+        raise RuntimeError("team compare %s is not bit-equal to its plain "
+                           "version" % name)
     ms = time_cuda(lambda: ka.tile_compare_lanes(ct, *lanes, mode=mode), 10)
     plain_ms = time_cuda(lambda: tl.COMPARE[mode](ct, *lanes), 3)
     b_ms, by = bound_ms(mode, n, n * compare_bytes(mode))
@@ -326,11 +350,15 @@ def phase_compare(mode, state, dev):
                 if mode == "444" else
                 "guetzli_tpu/ops/tiles_lanes.py:%d (XLA, no pallas_call)"
                 % (331 if mode == "420y" else 380))
-    return {"name": name, "route": "cuda",
-            "source": "guetzli_tpu_torch/csrc/tile_compare_lanes.cu",
-            "replaces": replaces, "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None}
+    rec = {"name": name, "route": "cuda",
+           "source": "guetzli_tpu_torch/csrc/tile_compare_lanes.cu",
+           "replaces": replaces, "max_abs_err": max_abs, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+           "library_ms": None}
+    if mode in ka.TEAM:
+        team_report(rec, "tile_compare_lanes", ka.team_geometry(mode, dev),
+                    "macroblock")
+    return rec
 
 
 def phase_greedy(mode, state, dev, plain_reps):
@@ -391,20 +419,8 @@ def phase_greedy(mode, state, dev, plain_reps):
            % mode, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
     if mode in zl.TEAM:
-        from guetzli_tpu_torch.kernels import build
-        geo = zl.team_geometry(mode, dev)
-        ptx = ptxas_report(build.build_log.get("zeroing_loop", {})
-                           .get("ptxas", "")).get(name + "_kernel", {})
-        log("%s (team kernel, one CTA per block): %d threads and %d B of "
-            "shared memory per CTA, %d CTAs per SM; ptxas %s; %.2fx the "
-            "per-thread design's %.1f ms"
-            % (name, geo["threads"], geo["smem_bytes"], geo["ctas_per_sm"],
-               ptx or "not built in this run", PREV_MS[mode] / ms,
-               PREV_MS[mode]))
-        rec.update(bound_share=b_ms / ms,
-                   threads_per_cta=geo["threads"],
-                   smem_per_cta=geo["smem_bytes"],
-                   ctas_per_sm=geo["ctas_per_sm"], ptxas=ptx)
+        team_report(rec, "zeroing_loop", zl.team_geometry(mode, dev),
+                    "block")
     return rec
 
 

@@ -12,12 +12,12 @@
 // sRGB->linear by table. Mode 444 converts all three channels of one 8x8
 // block; 420y only its Y channel, against frozen chroma bytes; 420c
 // rebuilds a 16x16 macroblock's chroma (IDCT into a frozen 10x10
-// neighbourhood, fancy upsample, dither) and converts each of its four
-// 8x8 sub-blocks against frozen Y bytes. The float stage, finish_block,
-// is one and the same for all: 8x8 opsin (tile-confined blur, Clenshaw
-// gamma) -> MaskHighIntensityChange against the original -> DFT8 block
-// diff (dc / ac / edge) -> sqrt((1-w) * sum_c (dc+ac)*sc +
-// w * sum_c edge*sc).
+// neighbourhood, fancy upsample, dither: neigh_at and up_byte below) and
+// converts each of its four 8x8 sub-blocks against frozen Y bytes. The
+// float stage, finish_block, is one and the same for all: 8x8 opsin
+// (tile-confined blur, Clenshaw gamma) -> MaskHighIntensityChange against
+// the original -> DFT8 block diff (dc / ac / edge) -> sqrt((1-w) * sum_c
+// (dc+ac)*sc + w * sum_c edge*sc).
 //
 // Numerics. Every float operation is written in the order of the plain
 // PyTorch version (guetzli_tpu_torch/ops/tiles_lanes.py): fixed-order
@@ -30,12 +30,12 @@
 // device, so it is that function exactly.
 //
 // Bound. About 10^5 float operations per block evaluation on ~1.5 KB of
-// per-block state: arithmetic, not bytes, bounds it. This first version
-// keeps the whole state of one block in one thread (local memory, cached in
-// L1) and does no work sharing; the tables sit in shared memory. Mode 420c
-// runs four float stages per evaluation; its frozen neighbourhoods, Y
-// bytes and opsin tiles are read from global memory where they are used
-// (a private copy would add to the stack, which already spills).
+// per-block state: arithmetic, not bytes, bounds it. This file holds the
+// per-thread chain, which keeps the whole state of one block in one thread
+// (local memory, cached in L1) with the tables in shared memory: kernels
+// A, A' and C run it. The team kernels (compare_team.cuh: B, B', B'' and
+// A'') split the same evaluation over 64 threads per 8x8 block and reuse
+// the helpers here (color transform, table reads, the 420c upsample).
 
 #pragma once
 
@@ -476,69 +476,25 @@ __device__ float compare_block_420y(const int* cy,
 
 // Entry (i, j) of a chroma channel's 10x10 x16 neighbourhood with the
 // candidate's IDCT bytes v shifted << 4 into the interior [1..8]x[1..8];
-// the frame comes from the frozen neighbourhood nb[10][10] (stride).
-__device__ __forceinline__ int neigh_at(const int* v,
-                                        const int* __restrict__ nb,
-                                        long stride, int i, int j) {
+// the frame comes from the frozen neighbourhood nb[10][10].
+__device__ __forceinline__ int neigh_at(const int* v, const int* nb, int i,
+                                        int j) {
   if (i >= 1 && i <= 8 && j >= 1 && j <= 8)
     return v[(i - 1) * 8 + (j - 1)] << 4;
-  return nb[(long)(i * 10 + j) * stride];
+  return nb[i * 10 + j];
 }
 
 // The chroma byte at (y, x) of the macroblock's 16x16 area: the fancy
 // upsample (9*s00 + 3*s01 + 3*s10 + s11) >> 4 of the neighbourhood, then
 // the ToPixels dither 8 - (x & 1) and >> 4 (x is the column within the
 // macroblock; 16*bx is even, so its parity is the absolute column's).
-__device__ __forceinline__ int up_byte(const int* v,
-                                       const int* __restrict__ nb,
-                                       long stride, int y, int x) {
+__device__ __forceinline__ int up_byte(const int* v, const int* nb, int y,
+                                       int x) {
   int cy = (y >> 1) + 1, cx = (x >> 1) + 1;
   int cy2 = cy + (y & 1) * 2 - 1, cx2 = cx + (x & 1) * 2 - 1;
-  int s = (9 * neigh_at(v, nb, stride, cy, cx) +
-           3 * neigh_at(v, nb, stride, cy, cx2) +
-           3 * neigh_at(v, nb, stride, cy2, cx) +
-           neigh_at(v, nb, stride, cy2, cx2)) >> 4;
+  int s = (9 * neigh_at(v, nb, cy, cx) + 3 * neigh_at(v, nb, cy, cx2) +
+           3 * neigh_at(v, nb, cy2, cx) + neigh_at(v, nb, cy2, cx2)) >> 4;
   return (s + 8 - (x & 1)) >> 4;
-}
-
-// Mode 420c, the 4:2:0 chroma pass over one 16x16 macroblock: cu, cv: the
-// Cb and Cr candidates (64 coefficients each); nu, nv: frozen x16
-// neighbourhoods [10][10]; y16: frozen Y bytes [16][16]; per sub-block
-// s = 2*sy + sx: x0c [4][3][8][8] opsin tiles, scc [4][3] scales, ymaxc,
-// xmaxc [4] clamps, validc [4]; every array element e at [e * stride].
-// Returns the max of the valid sub-blocks' errors, starting from 0.
-__device__ float compare_block_420c(
-    const int* cu, const int* cv, const int* __restrict__ nu,
-    const int* __restrict__ nv, const int* __restrict__ y16,
-    const float* __restrict__ x0c, const float* __restrict__ scc,
-    const int* __restrict__ ymaxc, const int* __restrict__ xmaxc,
-    const int* __restrict__ validc, long stride, const float* T) {
-  int vu[64], vv[64];
-  idct_block(cu, vu, T);
-  idct_block(cv, vv, T);
-  float best = 0.0f;
-  for (int s = 0; s < 4; ++s) {
-    if (validc[s * stride] <= 0) continue;   // contributes 0 to the max
-    const int oy = (s >> 1) * 8, ox = (s & 1) * 8;
-    const int ymax = ymaxc[s * stride], xmax = xmaxc[s * stride];
-    float lin[192];
-    for (int y = 0; y < 8; ++y) {
-      int yy = oy + (y <= ymax ? y : ymax);
-      for (int x = 0; x < 8; ++x) {
-        int xx = ox + (x <= xmax ? x : xmax);
-        store_linear(lin, y * 8 + x,
-                     ycc_to_linear(y16[(long)(yy * 16 + xx) * stride],
-                                   up_byte(vu, nu, stride, yy, xx),
-                                   up_byte(vv, nv, stride, yy, xx), T));
-      }
-    }
-    float err = finish_block(
-        lin, x0c + (long)s * 192 * stride, stride,
-        scc[(long)(s * 3) * stride], scc[(long)(s * 3 + 1) * stride],
-        scc[(long)(s * 3 + 2) * stride], T);
-    best = max_nan(best, err);
-  }
-  return best;
 }
 
 // Copies the table buffer into shared memory; every thread of the block

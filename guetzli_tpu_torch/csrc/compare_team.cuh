@@ -1,22 +1,25 @@
 // The block evaluation of compare_block.cuh done by a team of threads:
 // one unit of 64 threads (one pixel or one contraction output per thread)
 // per 8x8 block, every intermediate in shared memory. Used by the
-// greedy kernels B and B'' (zeroing_loop.cu).
+// greedy kernels B, B' and B'' (zeroing_loop.cu) and by the 4:2:0 chroma
+// compare A'' (tile_compare_lanes.cu).
 //
 // Replaces, with compare_block.cuh's per-thread chain, the evaluation of
 // the TPU kernel guetzli_tpu/kernels/zeroing_loop.py (_greedy_kernel,
-// :146; zeroing_loop_lanes, :301) in modes "444" and "420c".
+// :146; zeroing_loop_lanes, :301) in its three modes "444", "420y" and
+// "420c", and the XLA compare guetzli_tpu/ops/tiles_lanes.py:380
+// (compare_blocks_lanes420c).
 //
 // Bound. Operations: ~5*10^4 float operations per float stage on ~1.5 KB
 // of per-block state (PERF.md). The per-thread design ran one block's
-// whole loop in one thread: 255 registers, a ~9.5 KB stack in local
+// whole loop in one thread: 255 registers, a ~9 KB stack in local
 // memory, and one thread per block (5,187 threads for B'' on 132 SMs,
 // about 1.2 warps per SM). Here a block's 192 coefficients, its order
 // list, its frozen state and every intermediate live in shared memory, a
 // unit's thread holds only its pixel's values and its rows of the four
-// constant 8x8 matrices in registers, and B'' runs a candidate's four
-// sub-blocks side by side. Small CTAs (one or four units) let 16 or 4 of
-// them share an SM, so one CTA's barriers and one-thread tails are
+// constant 8x8 matrices in registers, and B'' and A'' run a candidate's
+// four sub-blocks side by side. Small CTAs (one or four units) let 16 or
+// 4 of them share an SM, so one CTA's barriers and one-thread tails are
 // hidden by the others.
 //
 // Numerics. The same bits as compare_block.cuh: every 8-point contraction
@@ -28,7 +31,7 @@
 // shuffles or atomics; built with --fmad=false.
 //
 // Barriers. Every thread of the CTA calls every function below that
-// contains __syncthreads(); a unit whose B'' sub-block is invalid passes
+// contains __syncthreads(); a unit whose 420c sub-block is invalid passes
 // active = false and skips the arithmetic only.
 
 #pragma once
@@ -113,6 +116,29 @@ __device__ __forceinline__ void pixel_444_team(const int* c, int zero,
   __syncthreads();
 }
 
+// Mode 420y pixel stage of one unit (one candidate): the Y channel of c
+// (slot `zero` zeroed) -> IDCT -> edge replication of the Y byte -> linear
+// RGB in LIN [3][64] against the frozen chroma bytes [2][64] (Cb, Cr),
+// read at the unreplicated pixel p as compare_block_420y reads them. ib:
+// the unit's int scratch [2][64] (IDCT columns, then bytes). Three
+// barriers.
+__device__ __forceinline__ void pixel_420y_team(const int* c, int zero,
+                                                int* ib, float* LIN,
+                                                const int* chroma, int ymax,
+                                                int xmax, const float* T,
+                                                const Rows& R, int p) {
+  const int hi = p >> 3, lo = p & 7;
+  ib[lo * 8 + hi] = idct_col(c, zero, hi, R);
+  __syncthreads();
+  ib[64 + p] = idct_row(ib, hi, R);
+  __syncthreads();
+  const int sy = hi <= ymax ? hi : ymax, sx = lo <= xmax ? lo : xmax;
+  gtk::store_linear(LIN, p,
+                    gtk::ycc_to_linear(ib[64 + sy * 8 + sx], chroma[p],
+                                       chroma[64 + p], T));
+  __syncthreads();
+}
+
 // Mode 420c pixel stage of one candidate's group of four units (one per
 // 8x8 sub-block s of the 16x16 macroblock). g: the thread's index in the
 // group (0..255); ib: the candidate's int scratch [2][2][64] (Cb and Cr
@@ -138,8 +164,8 @@ __device__ __forceinline__ void pixel_420c_team(
     gtk::store_linear(
         LIN, p,
         gtk::ycc_to_linear(y16[yy * 16 + xx],
-                           gtk::up_byte(ib + 128, nu, 1, yy, xx),
-                           gtk::up_byte(ib + 192, nv, 1, yy, xx), T));
+                           gtk::up_byte(ib + 128, nu, yy, xx),
+                           gtk::up_byte(ib + 192, nv, yy, xx), T));
   }
   __syncthreads();
 }
@@ -371,6 +397,164 @@ __device__ __forceinline__ void finish_team(float* U,
     diff_edge = diff_edge + edge[2] * sc[2];
     *err = sqrtf(S[S_1MEW] * diff + S[S_EW] * diff_edge);
   }
+}
+
+// ---- The team kernels: modes, shared memory, state, one evaluation -----
+//
+// Shared by the greedy kernels B, B', B'' (zeroing_loop.cu) and the team
+// compare A'' (tile_compare_lanes.cu): B'' and the compare that checks it
+// on the search path load the same state into the same layout and run the
+// same evaluation, so their errors agree by construction.
+
+// The lane-major state operands of a block (tile_compare_lanes.cu gives
+// their layouts), element e of lane b at [e * n + b]: the opsin tiles,
+// scales, clamps and validity (null: all valid) of its SUBS sub-blocks,
+// and its frozen int operands fz[0..2] of FZ0, FZ1, FZ2 rows.
+struct State {
+  const float* x0;
+  const float* sc;
+  const int* ymax;
+  const int* xmax;
+  const int* valid;
+  const int* fz[3];
+};
+
+// A mode: SUBS 8x8 sub-blocks per block, one 64-thread unit each, so a CTA
+// evaluates one candidate at a time; MINB: the CTAs per SM asked of ptxas
+// (__launch_bounds__), which caps the registers at 64; IBC: IDCT scratch
+// ints; FZ0..FZ2: rows of the frozen int operands (B': chroma [2][64];
+// B'' and A'': nu, nv [10][10], y16 [16][16]); pixel: the mode's pixel
+// stage, given the frozen ints fz in shared memory.
+struct Team444 {
+  static constexpr int SUBS = 1, MINB = 16, IBC = 384;
+  static constexpr int FZ0 = 0, FZ1 = 0, FZ2 = 0;
+  static __device__ __forceinline__ void pixel(const int* c, int zero,
+                                               int* ib, float* LIN,
+                                               const int* fz, int ymax,
+                                               int xmax, const float* T,
+                                               const Rows& R, int tid, bool) {
+    pixel_444_team(c, zero, ib, LIN, ymax, xmax, T, R, tid);
+  }
+};
+struct Team420y {
+  static constexpr int SUBS = 1, MINB = 16, IBC = 128;
+  static constexpr int FZ0 = 128, FZ1 = 0, FZ2 = 0;
+  static __device__ __forceinline__ void pixel(const int* c, int zero,
+                                               int* ib, float* LIN,
+                                               const int* fz, int ymax,
+                                               int xmax, const float* T,
+                                               const Rows& R, int tid, bool) {
+    pixel_420y_team(c, zero, ib, LIN, fz, ymax, xmax, T, R, tid);
+  }
+};
+struct Team420c {
+  static constexpr int SUBS = 4, MINB = 4, IBC = 256;
+  static constexpr int FZ0 = 100, FZ1 = 100, FZ2 = 256;
+  static __device__ __forceinline__ void pixel(const int* c, int zero,
+                                               int* ib, float* LIN,
+                                               const int* fz, int ymax,
+                                               int xmax, const float* T,
+                                               const Rows& R, int tid,
+                                               bool active) {
+    pixel_420c_team(c, zero, ib, LIN, tid / UNIT, fz, fz + 100, fz + 200,
+                    ymax, xmax, T, R, tid, active);
+  }
+};
+
+// The CTA's dynamic shared memory: floats, then ints (offsets in words).
+template <class M>
+struct Layout {
+  static constexpr int THREADS = M::SUBS * UNIT;
+  static constexpr int TAB = 0;                        // N_TABLES
+  static constexpr int UNITF = N_TABLES;               // units' scratch
+  static constexpr int X0 = UNITF + M::SUBS * F_UNIT;  // [SUBS][192]
+  static constexpr int SC = X0 + M::SUBS * 192;        // [SUBS][4]
+  static constexpr int ERR = SC + M::SUBS * 4;         // [SUBS]
+  static constexpr int NF = (ERR + M::SUBS + 3) / 4 * 4;
+  static constexpr int C = 0;                   // [192] coefficients
+  static constexpr int ORD = 192;               // [2][192] order, doubled
+  static constexpr int IB = ORD + 384;          // [IBC]
+  static constexpr int CL = IB + M::IBC;        // ymax, xmax, valid [SUBS]
+  static constexpr int NBI = CL + 3 * M::SUBS;  // [NB] frozen ints
+  static constexpr int NB = M::FZ0 + M::FZ1 + M::FZ2;
+  static constexpr int NI = NBI + NB;
+  static constexpr int BYTES = (NF + NI) * 4;
+  // Within the 48 KB a launch may ask without cudaFuncSetAttribute.
+  static_assert(BYTES <= 48 * 1024, "dynamic shared memory above 48 KB");
+};
+
+// Loads the table buffer and lane b's state into the CTA's shared memory
+// (sf: its floats, si: its ints). The caller loads the coefficients and
+// then synchronises.
+template <class M>
+__device__ __forceinline__ void load_state(const State& s,
+                                           const float* __restrict__ tables,
+                                           float* sf, int* si, int b, int n,
+                                           int tid) {
+  using L = Layout<M>;
+  for (int i = tid; i < N_TABLES; i += L::THREADS) sf[L::TAB + i] = tables[i];
+  for (int i = tid; i < M::SUBS * 192; i += L::THREADS)
+    sf[L::X0 + i] = s.x0[(long)i * n + b];
+  for (int i = tid; i < M::SUBS * 3; i += L::THREADS)
+    sf[L::SC + (i / 3) * 4 + i % 3] = s.sc[(long)i * n + b];
+  for (int i = tid; i < M::SUBS; i += L::THREADS) {
+    si[L::CL + i] = s.ymax[(long)i * n + b];
+    si[L::CL + M::SUBS + i] = s.xmax[(long)i * n + b];
+    si[L::CL + 2 * M::SUBS + i] = s.valid ? s.valid[(long)i * n + b] : 1;
+  }
+  for (int i = tid; i < L::NB; i += L::THREADS)
+    si[L::NBI + i] =
+        i < M::FZ0             ? s.fz[0][(long)i * n + b]
+        : i < M::FZ0 + M::FZ1  ? s.fz[1][(long)(i - M::FZ0) * n + b]
+                               : s.fz[2][(long)(i - M::FZ0 - M::FZ1) * n + b];
+}
+
+// One candidate's error by the whole CTA: the coefficients c [192] in
+// shared memory with slot `zero` zeroed (-1: none) -> the mode's pixel
+// stage -> one float stage per unit. B and B': the block's error; B'' and
+// A'': the max over the valid sub-blocks, starting from 0, in sub-block
+// order. Every thread returns the same value. Eleven barriers.
+template <class M>
+__device__ __forceinline__ float eval_team(const int* c, int zero, float* sf,
+                                           int* si, const Rows& R, int tid) {
+  using L = Layout<M>;
+  const int sub = tid / UNIT;
+  const float* T = sf + L::TAB;
+  float* U = sf + L::UNITF + sub * F_UNIT;
+  const bool active = si[L::CL + 2 * M::SUBS + sub] > 0;
+  M::pixel(c, zero, si + L::IB, U + F_LIN, si + L::NBI, si[L::CL + sub],
+           si[L::CL + M::SUBS + sub], T, R, tid, active);
+  finish_team(U, sf + L::X0 + sub * 192, sf + L::SC + sub * 4, T, R,
+              tid % UNIT, active, sf + L::ERR + sub);
+  __syncthreads();
+  float e = M::SUBS == 1 ? sf[L::ERR] : 0.0f;
+  if constexpr (M::SUBS > 1)
+    for (int s = 0; s < M::SUBS; ++s)
+      if (si[L::CL + 2 * M::SUBS + s] > 0) e = gtk::max_nan(e, sf[L::ERR + s]);
+  return e;
+}
+
+// Asks for the largest shared-memory carveout of the SM's 256 KB, so that
+// shared memory and not the L1 split limits the CTAs per SM.
+template <class K>
+static int prefer_smem(K kernel) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+}
+
+// The launch geometry of a team kernel of mode M: threads and dynamic
+// shared memory bytes per CTA, and the CTAs that fit on one SM.
+template <class M, class K>
+static int geometry(K kernel, int* threads, int* smem_bytes,
+                    int* ctas_per_sm) {
+  *threads = Layout<M>::THREADS;
+  *smem_bytes = Layout<M>::BYTES;
+  int rc = prefer_smem(kernel);
+  if (rc == 0)
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas_per_sm, kernel, *threads, *smem_bytes);
+  return rc;
 }
 
 }  // namespace gtt

@@ -14,23 +14,28 @@
 // A: x0 float32 [3,8,8,N], sc float32 [3,N], ymax/xmax int32 [N];
 // A': chroma int32 [2,8,8,N] and A's state; A'': nu/nv int32 [10,10,N],
 // y16 int32 [16,16,N], x0c float32 [2,2,3,8,8,N], scc float32 [2,2,3,N],
-// ymaxc/xmaxc/validc int32 [2,2,N]. out float32 [N]. One thread per
-// block, so neighbouring threads read neighbouring addresses of every
-// operand. A and A' run 128 threads per CTA; A'' 32, because a 4:2:0
-// image has a quarter as many macroblocks as 8x8 blocks (5,187 on a
-// 1444x908 image: 163 CTAs for 132 SMs, against 41 at 128).
+// ymaxc/xmaxc/validc int32 [2,2,N]. out float32 [N].
+//
+// Two designs. A and A' run one thread per block, 128 threads per CTA,
+// so neighbouring threads read neighbouring addresses of every operand;
+// the whole chain of one block runs in one thread (compare_block.cuh)
+// with its state in local memory. A'' is a team compare: one CTA of four
+// 64-thread units (one per 8x8 sub-block) per macroblock loads the lane's
+// Cb/Cr candidates and frozen state into shared memory and runs one
+// evaluation of compare_team.cuh, the same load and evaluation as the
+// greedy kernel B'' (zeroing_loop.cu), so the two agree by construction.
 //
 // Bound. About 10^5 float operations per 8x8 evaluation (four of them
-// for A'') for about 1.2 KB of operand bytes: arithmetic bounds it, not
-// memory. This first version runs the whole chain of one block in one
-// thread (compare_block.cuh); its state lives in local memory. Splitting a
-// block over a warp, and staging the tables and tiles in shared memory,
-// are later work.
+// for A'') for about 1.2 KB (A'': 5.6 KB) of operand bytes: arithmetic
+// bounds it, not memory.
 //
 // Built with --fmad=false (see compare_block.cuh): each multiply and add
 // rounds on its own, as in the plain PyTorch version.
 
 #include "compare_block.cuh"
+#include "compare_team.cuh"
+
+extern __shared__ float4 team_smem[];
 
 extern "C" __global__ void __launch_bounds__(128)
 tile_compare_lanes_kernel(const int* __restrict__ cand,
@@ -70,7 +75,10 @@ tile_compare_lanes_420y_kernel(const int* __restrict__ cand,
                                    xmax[b], T);
 }
 
-extern "C" __global__ void __launch_bounds__(32)
+using L420c = gtt::Layout<gtt::Team420c>;
+
+extern "C" __global__ void __launch_bounds__(L420c::THREADS,
+                                             gtt::Team420c::MINB)
 tile_compare_lanes_420c_kernel(
     const int* __restrict__ cand, const int* __restrict__ nu,
     const int* __restrict__ nv, const int* __restrict__ y16,
@@ -78,18 +86,19 @@ tile_compare_lanes_420c_kernel(
     const int* __restrict__ ymaxc, const int* __restrict__ xmaxc,
     const int* __restrict__ validc, const float* __restrict__ tables,
     float* __restrict__ out, int n) {
-  __shared__ float T[N_TABLES];
-  gtk::load_tables(tables, T);
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n) return;
-  int cu[64], cv[64];
-  for (int k = 0; k < 64; ++k) {
-    cu[k] = cand[(long)(64 + k) * n + b];
-    cv[k] = cand[(long)(128 + k) * n + b];
-  }
-  out[b] = gtk::compare_block_420c(cu, cv, nu + b, nv + b, y16 + b, x0c + b,
-                                   scc + b, ymaxc + b, xmaxc + b, validc + b,
-                                   n, T);
+  float* sf = (float*)team_smem;
+  int* si = (int*)(sf + L420c::NF);
+  const int b = blockIdx.x, tid = threadIdx.x;
+  for (int i = 64 + tid; i < 192; i += L420c::THREADS)
+    si[L420c::C + i] = cand[(long)i * n + b];
+  const gtt::State s{x0c, scc, ymaxc, xmaxc, validc, {nu, nv, y16}};
+  gtt::load_state<gtt::Team420c>(s, tables, sf, si, b, n, tid);
+  __syncthreads();
+  gtt::Rows R;
+  gtt::load_rows(sf + L420c::TAB, tid & 7, R);
+  const float e =
+      gtt::eval_team<gtt::Team420c>(si + L420c::C, -1, sf, si, R, tid);
+  if (tid == 0) out[b] = e;
 }
 
 static int grid(int n, int threads) { return (n + threads - 1) / threads; }
@@ -125,11 +134,23 @@ extern "C" int gt_tile_compare_lanes_420c(
     const void* x0c, const void* scc, const void* ymaxc, const void* xmaxc,
     const void* validc, const void* tables, void* out, int n, void* stream) {
   if (n <= 0) return 0;
-  tile_compare_lanes_420c_kernel<<<grid(n, 32), 32, 0,
+  int rc = gtt::prefer_smem(tile_compare_lanes_420c_kernel);
+  if (rc != 0) return rc;
+  tile_compare_lanes_420c_kernel<<<n, L420c::THREADS, L420c::BYTES,
                                    (cudaStream_t)stream>>>(
       (const int*)cand, (const int*)nu, (const int*)nv, (const int*)y16,
       (const float*)x0c, (const float*)scc, (const int*)ymaxc,
       (const int*)xmaxc, (const int*)validc, (const float*)tables,
       (float*)out, n);
   return (int)cudaGetLastError();
+}
+
+// The launch geometry of team compare `mode` (0: A''): threads and dynamic
+// shared memory bytes per CTA, and the CTAs that fit on one SM.
+extern "C" int gt_tile_compare_lanes_geometry(int mode, int* threads,
+                                              int* smem_bytes,
+                                              int* ctas_per_sm) {
+  if (mode != 0) return 1;  // cudaErrorInvalidValue
+  return gtt::geometry<gtt::Team420c>(tile_compare_lanes_420c_kernel,
+                                      threads, smem_bytes, ctas_per_sm);
 }

@@ -23,7 +23,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # Library name -> its source file; compare_block.cuh is included by all,
-# compare_team.cuh by zeroing_loop.cu.
+# compare_team.cuh by zeroing_loop.cu and tile_compare_lanes.cu.
 SOURCES = {
     "tile_compare_lanes": "tile_compare_lanes.cu",
     "zeroing_loop": "zeroing_loop.cu",
@@ -42,7 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # pointers..., tables, out, n, stream), kernel C's state being (xyb0,
 # scales, sy, sx); a greedy loop takes (coeffs, order, nrem, lim, state
 # pointers..., tables, out_idx, out_err, n, lookahead, early_exit,
-# stream); the geometry query takes (mode, &threads, &smem_bytes,
+# stream); a geometry query takes (mode, &threads, &smem_bytes,
 # &ctas_per_sm).
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +55,9 @@ SIGNATURES = {
     "tile_compare_lanes_420c": ("tile_compare_lanes",
                                 "gt_tile_compare_lanes_420c",
                                 [_P] * 11 + [_I, _P]),
+    "tile_compare_lanes_geometry": ("tile_compare_lanes",
+                                    "gt_tile_compare_lanes_geometry",
+                                    [_I, _P, _P, _P]),
     "zeroing_loop": ("zeroing_loop", "gt_zeroing_loop",
                      [_P] * 11 + [_I, _I, _I, _P]),
     "zeroing_loop_420y": ("zeroing_loop", "gt_zeroing_loop_420y",

@@ -5,13 +5,16 @@ Port of guetzli_tpu/kernels/tile_compare_lanes.py (_tile_compare_lanes),
 mode "444" (kernel A), and of the JAX package's XLA compares
 ops/tiles_lanes.compare_blocks_lanes420y / 420c (A' and A'', which the
 zeroing driver needs to check kernels B' and B''). The CUDA kernels are
-csrc/tile_compare_lanes.cu (one thread per block, the chain in
-csrc/compare_block.cuh); their plain PyTorch versions are
-ops/tiles_lanes.COMPARE.
+csrc/tile_compare_lanes.cu: A and A' run one thread per block (the chain
+in csrc/compare_block.cuh), A'' one CTA per macroblock (the team
+evaluation of csrc/compare_team.cuh that B'' runs). Their plain PyTorch
+versions are ops/tiles_lanes.COMPARE.
 
 ``tile_compare_lanes`` runs the plain version for CPU tensors only. For
 CUDA tensors it launches the kernel or raises; it never falls back.
 """
+
+import ctypes
 
 import torch
 
@@ -24,6 +27,9 @@ launches = {"444": 0, "420y": 0, "420c": 0}
 # The C entry point (csrc/tile_compare_lanes.cu) of each mode.
 ENTRY = {"444": "tile_compare_lanes", "420y": "tile_compare_lanes_420y",
          "420c": "tile_compare_lanes_420c"}
+
+# The team compares' index in gt_tile_compare_lanes_geometry.
+TEAM = {"420c": 0}
 
 _tables = {}
 
@@ -109,3 +115,24 @@ def tile_compare_lanes(cand_t, *aux, mode="444"):
                            % (ENTRY[mode], rc))
     launches[mode] += 1
     return out
+
+
+def geometry(entry, index, device):
+    """The launch geometry of team kernel `index` of geometry query `entry`
+    (build.SIGNATURES) on `device`: {"threads", "smem_bytes"} per CTA and
+    "ctas_per_sm", the CTAs that fit on one SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    fn = build.load(entry)
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        rc = fn(index, *[ctypes.byref(v) for v in vals])
+    if rc != 0:
+        raise RuntimeError("%s(%d) failed: CUDA error %d" % (entry, index, rc))
+    return dict(zip(("threads", "smem_bytes", "ctas_per_sm"),
+                    (v.value for v in vals)))
+
+
+def team_geometry(mode, device):
+    """The launch geometry of team compare `mode` ("420c": A'') on
+    `device` (see ``geometry``)."""
+    return geometry("tile_compare_lanes_geometry", TEAM[mode], device)

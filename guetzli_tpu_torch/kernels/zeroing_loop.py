@@ -4,8 +4,8 @@ Port of guetzli_tpu/kernels/zeroing_loop.py (zeroing_loop_lanes) in its
 three modes: "444" (B, 8x8 blocks of all three channels), "420y" (B',
 the 4:2:0 Y pass over 8x8 Y blocks against frozen chroma) and "420c"
 (B'', the 4:2:0 chroma pass over 16x16 macroblocks against frozen Y).
-The CUDA kernels are csrc/zeroing_loop.cu: B and B'' run one CTA per
-block (csrc/compare_team.cuh), B' one thread per block;
+The CUDA kernels are csrc/zeroing_loop.cu: all three run one CTA per
+block or macroblock (csrc/compare_team.cuh);
 ``zeroing_loop_plain`` below is their plain PyTorch version. The plain
 loop takes the block evaluator as an argument: with the plain compare
 of the mode (ops/tiles_lanes.COMPARE) it is the kernels' twin; with
@@ -17,12 +17,11 @@ search/zeroing.py, whose rails equal the fused kernel's bit for bit.
 tensors it launches the kernel or raises; it never falls back.
 """
 
-import ctypes
-
 import torch
 
 from guetzli_tpu_torch.kernels import build
 from guetzli_tpu_torch.kernels.tile_compare_lanes import (check, check_aux,
+                                                          geometry,
                                                           table_buffer)
 from guetzli_tpu_torch.ops.tiles_lanes import COMPARE
 
@@ -36,7 +35,7 @@ ENTRY = {"444": "zeroing_loop", "420y": "zeroing_loop_420y",
          "420c": "zeroing_loop_420c"}
 
 # The team kernels' index in gt_zeroing_loop_geometry.
-TEAM = {"444": 0, "420c": 1}
+TEAM = {"444": 0, "420c": 1, "420y": 2}
 
 
 def zeroing_loop_plain(coeffs_t, order_t, nrem, lim, aux, mode="444",
@@ -147,15 +146,6 @@ def zeroing_loop(coeffs_t, order_t, nrem, lim, aux, mode="444",
 
 
 def team_geometry(mode, device):
-    """The launch geometry of team kernel `mode` ("444": B, "420c": B'')
-    on `device`: {"threads", "smem_bytes"} per CTA and "ctas_per_sm", the
-    CTAs that fit on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    fn = build.load("zeroing_loop_geometry")
-    vals = [ctypes.c_int(0) for _ in range(3)]
-    with torch.cuda.device(device):
-        rc = fn(TEAM[mode], *[ctypes.byref(v) for v in vals])
-    if rc != 0:
-        raise RuntimeError("zeroing_loop_geometry(%s) failed: CUDA error %d"
-                           % (mode, rc))
-    return dict(zip(("threads", "smem_bytes", "ctas_per_sm"),
-                    (v.value for v in vals)))
+    """The launch geometry of greedy kernel `mode` ("444": B, "420y": B',
+    "420c": B'') on `device` (see tile_compare_lanes.geometry)."""
+    return geometry("zeroing_loop_geometry", TEAM[mode], device)

@@ -11,8 +11,8 @@ tensors. The shim defines the keywords away and rewrites each launch
 CTAs one after another, each CTA's threads as fibers that run
 concurrently between barriers: ``__syncthreads()`` returns once every
 thread of the CTA has reached it, and a barrier that some threads skip
-fails the launch. The team kernels B and B'' (one CTA per block, their
-state in shared memory) rely on that.
+fails the launch. The team kernels B, B', B'' and A'' (one CTA per block
+or macroblock, their state in shared memory) rely on that.
 
 With -ffp-contract=off (the card's build uses --fmad=false) and IEEE
 division and sqrt on both sides, the host-built kernels equal the plain
@@ -323,8 +323,12 @@ def test_host_built_tile_compare_equals_plain(host_libs, states):
     assert bool(torch.isfinite(out).all()) and float(out.max()) > 0
 
 
-_TEAM_CASES = [(m, la, e) for m in ("444", "420c") for la in (1, 2, 3, 4)
-               for e in (False, True)]
+_TEAM_CASES = [(m, la, e) for m in ("444", "420y", "420c")
+               for la in (1, 2, 3, 4) for e in (False, True)]
+# Per mode: the error limit, and for the 8x8 modes the longest loops kept
+# in the subset of blocks (an odd count of blocks in all).
+_TEAM_LIMIT = {"444": 4.0, "420y": 3.0, "420c": 3.0}
+_TEAM_LONGEST = {"444": 5, "420y": 4}
 
 
 @pytest.mark.parametrize(
@@ -333,20 +337,22 @@ _TEAM_CASES = [(m, la, e) for m in ("444", "420c") for la in (1, 2, 3, 4)
          for m, la, e in _TEAM_CASES])
 def test_host_built_team_kernels_equal_plain(host_libs, states, mode,
                                              lookahead, early):
-    """The team kernels B and B'' (one CTA per block, its state in shared
-    memory) against the plain loop, rails bit for bit, at each lookahead
-    up to one past the default 3, with and without early exit. Mode 444
-    runs an odd subset of bees_d's blocks: the five longest loops, every fourth of the
-    rest and blocks with 1 and 0 candidates; mode 420c all 28 macroblocks
-    of bees_d-420, whose last column has invalid sub-blocks."""
+    """The team kernels B, B' and B'' (one CTA per block, its state in
+    shared memory) against the plain loop, rails bit for bit, at each
+    lookahead up to one past the default 3, with and without early exit.
+    Modes 444 and 420y run an odd subset of bees_d's and bees_d-420's
+    blocks: the longest loops, every fourth of the rest and blocks with 1
+    and 0 candidates; mode 420c all 28 macroblocks of bees_d-420, whose
+    last column has invalid sub-blocks."""
     blocks, aux, mask = states[mode]
-    limit = np.float32(4.0 if mode == "444" else 3.0)
-    if mode == "444":
+    limit = np.float32(_TEAM_LIMIT[mode])
+    if mode in _TEAM_LONGEST:
         args, perm, _inv, _lim = zeroing.loop_inputs(
             blocks, blocks, limit, aux, mask, CPU, mode)
         nrem = args[2].numpy()
         pos = np.unique(np.concatenate([
-            np.arange(5), np.arange(5, len(nrem), 4),
+            np.arange(_TEAM_LONGEST[mode]),
+            np.arange(_TEAM_LONGEST[mode], len(nrem), 4),
             np.flatnonzero(nrem == 1)[:2], np.flatnonzero(nrem == 0)[:2]]))
         sel = perm[pos]
         blocks = blocks[sel]
@@ -381,16 +387,73 @@ def test_host_built_team_kernels_equal_plain(host_libs, states, mode,
     zeroing.check_final_errors(coeffs_t, out_idx, out_err, lanes, mode)
 
 
+def test_host_built_team_compare_420c(host_libs, states):
+    """The team compare A'' on all 28 macroblocks of bees_d-420 (the last
+    column has invalid sub-blocks) and on each one's first-step
+    candidates (its three best-scored coefficients zeroed in turn): equal
+    to its plain version bit for bit, and to the final errors of the
+    host-built greedy kernel B'' on the macroblocks' finished loops."""
+    blocks, aux, mask = states["420c"]
+    args, _perm, _inv, _lim = zeroing.loop_inputs(
+        blocks, blocks, np.float32(3.0), aux, mask, CPU, "420c")
+    coeffs_t, order_t, nrem, lim, lanes = args
+    n = coeffs_t.shape[1]
+    assert n == 28 and int(lanes[-1].reshape(4, n).sum(0).min()) < 4
+    tab = tables.build(CPU)
+    compare = _entry(host_libs, ka.ENTRY["420c"])
+
+    def host_a(cand, lanes_m):
+        m = cand.shape[-1]
+        out = torch.empty(m)
+        rc = compare(cand.contiguous().data_ptr(),
+                     *[a.data_ptr() for a in lanes_m], tab.data_ptr(),
+                     out.data_ptr(), m, None)
+        assert rc == 0
+        return out
+
+    # Every macroblock as it stands, then its first step's candidates.
+    rows = torch.arange(192)[:, None]
+    firsts = [torch.where(rows == order_t[l][None, :], 0, coeffs_t)
+              for l in range(3)]
+    cand = torch.cat([coeffs_t] + firsts, 1).reshape(3, 8, 8, 4 * n)
+    lanes4 = [torch.cat([a] * 4, -1).contiguous() for a in lanes]
+    got = host_a(cand.contiguous(), lanes4)
+    assert torch.equal(got, tl.COMPARE["420c"](cand.contiguous(), *lanes4))
+    assert bool(torch.isfinite(got).all()) and float(got.max()) > 0
+    # The last error of B'' in each block equals A'' on its final coefficients.
+    out_idx = torch.empty((192, n), dtype=torch.int32)
+    out_err = torch.empty((192, n))
+    rc = _entry(host_libs, zl.ENTRY["420c"])(
+        coeffs_t.data_ptr(), order_t.data_ptr(), nrem.data_ptr(),
+        lim.data_ptr(), *[a.data_ptr() for a in lanes], tab.data_ptr(),
+        out_idx.data_ptr(), out_err.data_ptr(), n, 3, 0, None)
+    assert rc == 0
+    steps = torch.isfinite(out_err).sum(0)
+    final = coeffs_t.clone()
+    for b in range(n):
+        final[out_idx[:steps[b], b].long(), b] = 0
+    last = out_err.gather(0, (steps - 1).clamp(min=0)[None])[0]
+    errs = host_a(final.reshape(3, 8, 8, n), lanes)
+    done = steps > 0
+    assert int(done.sum()) > n // 2
+    assert torch.equal(errs[done], last[done])
+
+
 def test_host_team_geometry(host_libs):
-    """The geometry entry point of the team kernels: one unit of 64
-    threads per 8x8 block (B: one, B'': four), the dynamic shared memory
-    of each CTA within the 48 KB a launch may take without asking."""
-    fn = _entry(host_libs, "zeroing_loop_geometry")
+    """The geometry entry points of the team kernels: one unit of 64
+    threads per 8x8 block (B and B': one, B'' and A'': four), the dynamic
+    shared memory of each CTA within the 48 KB a launch may take without
+    asking; A'' takes the layout of B''."""
     got = []
-    for mode in (0, 1):
+    for entry, mode in (("zeroing_loop_geometry", 0),
+                        ("zeroing_loop_geometry", 2),
+                        ("zeroing_loop_geometry", 1),
+                        ("tile_compare_lanes_geometry", 0)):
+        fn = _entry(host_libs, entry)
         vals = [ctypes.c_int(-1) for _ in range(3)]
         assert fn(mode, *[ctypes.byref(v) for v in vals]) == 0
         got.append([v.value for v in vals])
-    assert [g[0] for g in got] == [64, 256]
-    assert 0 < got[0][1] < got[1][1] <= 48 * 1024
+    assert [g[0] for g in got] == [64, 64, 256, 256]
+    assert 0 < got[1][1] < got[0][1] < got[2][1] <= 48 * 1024
+    assert got[3] == got[2]
     assert all(g[2] == 1 for g in got)
