@@ -16,11 +16,12 @@ main paths' shapes, and times them:
     pass over 16x16 macroblocks (A'' and B'', mode "420c", comp_mask 6).
 
 The greedy kernels' rails must equal the plain loop's on every block
-row. For the team kernels (B, B' and B'', one CTA per block, and A'',
-one CTA per macroblock) it also prints the launch geometry (threads and
-shared memory per CTA, CTAs per SM) and ptxas's registers and stack, and
-records the share of the operation bound; its log line sets the time
-beside the per-thread design's.
+row, and the team compares (A, A' and A'') must equal their plain
+versions bit for bit. For the team kernels (B, B', B'', A, A' and A'',
+one CTA per 8x8 block or 16x16 macroblock) it also prints the launch
+geometry (threads and shared memory per CTA, CTAs per SM) and ptxas's
+registers and stack, and records the share of the operation bound; its
+log line sets the time beside the per-thread design's.
 
 Then it drives the paths end to end on the card, each with the launch
 counts set to 0 just before it and read just after:
@@ -93,7 +94,8 @@ PEAK_BYTES = 3.35e12
 # shapes of phase_greedy and phase_compare (PERF.md, section 6), for the
 # log only: the kernels' JSON record holds this run's numbers alone.
 PREV_MS = {"zeroing_loop": 150.3, "zeroing_loop_420c": 267.7,
-           "zeroing_loop_420y": 57.25, "tile_compare_lanes_420c": 1.507}
+           "zeroing_loop_420y": 57.25, "tile_compare_lanes_420c": 1.507,
+           "tile_compare_lanes": 1.027, "tile_compare_lanes_420y": 1.021}
 
 
 def log(*a):
@@ -357,7 +359,7 @@ def phase_compare(mode, state, dev):
            "library_ms": None}
     if mode in ka.TEAM:
         team_report(rec, "tile_compare_lanes", ka.team_geometry(mode, dev),
-                    "macroblock")
+                    "macroblock" if mode == "420c" else "block")
     return rec
 
 

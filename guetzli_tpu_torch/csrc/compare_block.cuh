@@ -1,6 +1,6 @@
-// One block's CompareBlock error (butteraugli_comparator.cc:113-163) in
-// the three modes of the greedy search, shared by the kernels of this
-// directory.
+// One block's CompareBlock error (butteraugli_comparator.cc:113-163): the
+// table layout, the helpers of the pixel stage and the per-thread float
+// stage, shared by the kernels of this directory.
 //
 // Replaces the per-lane evaluation chain of the TPU kernels
 // guetzli_tpu/kernels/tile_compare_lanes.py::_kernel and
@@ -13,11 +13,11 @@
 // block; 420y only its Y channel, against frozen chroma bytes; 420c
 // rebuilds a 16x16 macroblock's chroma (IDCT into a frozen 10x10
 // neighbourhood, fancy upsample, dither: neigh_at and up_byte below) and
-// converts each of its four 8x8 sub-blocks against frozen Y bytes. The
-// float stage, finish_block, is one and the same for all: 8x8 opsin
-// (tile-confined blur, Clenshaw gamma) -> MaskHighIntensityChange against
-// the original -> DFT8 block diff (dc / ac / edge) -> sqrt((1-w) * sum_c
-// (dc+ac)*sc + w * sum_c edge*sc).
+// converts each of its four 8x8 sub-blocks against frozen Y bytes
+// (compare_team.cuh holds the three pixel stages). The float stage is one
+// and the same for all: 8x8 opsin (tile-confined blur, Clenshaw gamma) ->
+// MaskHighIntensityChange against the original -> DFT8 block diff (dc /
+// ac / edge) -> sqrt((1-w) * sum_c (dc+ac)*sc + w * sum_c edge*sc).
 //
 // Numerics. Every float operation is written in the order of the plain
 // PyTorch version (guetzli_tpu_torch/ops/tiles_lanes.py): fixed-order
@@ -31,11 +31,12 @@
 //
 // Bound. About 10^5 float operations per block evaluation on ~1.5 KB of
 // per-block state: arithmetic, not bytes, bounds it. This file holds the
-// per-thread chain, which keeps the whole state of one block in one thread
-// (local memory, cached in L1) with the tables in shared memory: kernels
-// A, A' and C run it. The team kernels (compare_team.cuh: B, B', B'' and
-// A'') split the same evaluation over 64 threads per 8x8 block and reuse
-// the helpers here (color transform, table reads, the 420c upsample).
+// per-thread float stage (finish_block), which keeps the whole state of
+// one block in one thread (local memory, cached in L1) with the tables in
+// shared memory: kernel C runs it. The team kernels (compare_team.cuh: B,
+// B', B'', A, A' and A'') split the same evaluation over 64 threads per
+// 8x8 block and reuse the helpers here (color transform, table reads, the
+// 420c upsample).
 
 #pragma once
 
@@ -422,56 +423,6 @@ __device__ __forceinline__ float finish_block(const float* lin,
   diff_edge = diff_edge + edge[1] * sc1;
   diff_edge = diff_edge + edge[2] * sc2;
   return sqrtf(S[S_1MEW] * diff + S[S_EW] * diff_edge);
-}
-
-// Mode 444: one 8x8 block of all three channels. c: 192 dequantized
-// coefficients (channel*64 + u*8 + x); ymax, xmax: edge clamps.
-__device__ float compare_block(const int* c, const float* __restrict__ x0,
-                               long stride, float sc0, float sc1, float sc2,
-                               int ymax, int xmax, const float* T) {
-  float lin[192];
-  {
-    int v[3][64];
-    for (int ch = 0; ch < 3; ++ch) idct_block(c + ch * 64, v[ch], T);
-    for (int y = 0; y < 8; ++y) {
-      int sy = y <= ymax ? y : ymax;
-      for (int x = 0; x < 8; ++x) {
-        int sx = x <= xmax ? x : xmax;
-        int p = sy * 8 + sx;
-        store_linear(lin, y * 8 + x,
-                     ycc_to_linear(v[0][p], v[1][p], v[2][p], T));
-      }
-    }
-  }
-  return finish_block(lin, x0, stride, sc0, sc1, sc2, T);
-}
-
-// Mode 420y, the 4:2:0 Y pass: only the Y candidate cy[64] goes through
-// the IDCT and edge replication; chroma holds the lane's frozen Cb/Cr
-// bytes [2][8][8] (already edge-replicated), element e at
-// chroma[e * stride].
-__device__ float compare_block_420y(const int* cy,
-                                    const int* __restrict__ chroma,
-                                    const float* __restrict__ x0,
-                                    long stride, float sc0, float sc1,
-                                    float sc2, int ymax, int xmax,
-                                    const float* T) {
-  float lin[192];
-  {
-    int v[64];
-    idct_block(cy, v, T);
-    for (int y = 0; y < 8; ++y) {
-      int sy = y <= ymax ? y : ymax;
-      for (int x = 0; x < 8; ++x) {
-        int sx = x <= xmax ? x : xmax;
-        int p = y * 8 + x;
-        store_linear(lin, p,
-                     ycc_to_linear(v[sy * 8 + sx], chroma[(long)p * stride],
-                                   chroma[(long)(64 + p) * stride], T));
-      }
-    }
-  }
-  return finish_block(lin, x0, stride, sc0, sc1, sc2, T);
 }
 
 // Entry (i, j) of a chroma channel's 10x10 x16 neighbourhood with the

@@ -1,14 +1,15 @@
 // The block evaluation of compare_block.cuh done by a team of threads:
 // one unit of 64 threads (one pixel or one contraction output per thread)
 // per 8x8 block, every intermediate in shared memory. Used by the
-// greedy kernels B, B' and B'' (zeroing_loop.cu) and by the 4:2:0 chroma
-// compare A'' (tile_compare_lanes.cu).
+// greedy kernels B, B' and B'' (zeroing_loop.cu) and by the compares A,
+// A' and A'' (tile_compare_lanes.cu) that check them.
 //
-// Replaces, with compare_block.cuh's per-thread chain, the evaluation of
-// the TPU kernel guetzli_tpu/kernels/zeroing_loop.py (_greedy_kernel,
-// :146; zeroing_loop_lanes, :301) in its three modes "444", "420y" and
-// "420c", and the XLA compare guetzli_tpu/ops/tiles_lanes.py:380
-// (compare_blocks_lanes420c).
+// Replaces the evaluation of the TPU kernels
+// guetzli_tpu/kernels/zeroing_loop.py (_greedy_kernel, :146;
+// zeroing_loop_lanes, :301) in its three modes "444", "420y" and "420c"
+// and guetzli_tpu/kernels/tile_compare_lanes.py (_tile_compare_lanes,
+// :119), and the XLA compares guetzli_tpu/ops/tiles_lanes.py:331 and :380
+// (compare_blocks_lanes420y, compare_blocks_lanes420c).
 //
 // Bound. Operations: ~5*10^4 float operations per float stage on ~1.5 KB
 // of per-block state (PERF.md). The per-thread design ran one block's
@@ -119,9 +120,9 @@ __device__ __forceinline__ void pixel_444_team(const int* c, int zero,
 // Mode 420y pixel stage of one unit (one candidate): the Y channel of c
 // (slot `zero` zeroed) -> IDCT -> edge replication of the Y byte -> linear
 // RGB in LIN [3][64] against the frozen chroma bytes [2][64] (Cb, Cr),
-// read at the unreplicated pixel p as compare_block_420y reads them. ib:
-// the unit's int scratch [2][64] (IDCT columns, then bytes). Three
-// barriers.
+// read at the unreplicated pixel p (they are edge-replicated already, as
+// ops/tiles_lanes.compare_lanes_420y reads them). ib: the unit's int
+// scratch [2][64] (IDCT columns, then bytes). Three barriers.
 __device__ __forceinline__ void pixel_420y_team(const int* c, int zero,
                                                 int* ib, float* LIN,
                                                 const int* chroma, int ymax,
@@ -402,9 +403,10 @@ __device__ __forceinline__ void finish_team(float* U,
 // ---- The team kernels: modes, shared memory, state, one evaluation -----
 //
 // Shared by the greedy kernels B, B', B'' (zeroing_loop.cu) and the team
-// compare A'' (tile_compare_lanes.cu): B'' and the compare that checks it
-// on the search path load the same state into the same layout and run the
-// same evaluation, so their errors agree by construction.
+// compares A, A', A'' (tile_compare_lanes.cu): each greedy kernel and the
+// compare that checks it on the search path load the same state into the
+// same layout and run the same evaluation, so their errors agree by
+// construction.
 
 // The lane-major state operands of a block (tile_compare_lanes.cu gives
 // their layouts), element e of lane b at [e * n + b]: the opsin tiles,
@@ -422,7 +424,7 @@ struct State {
 // A mode: SUBS 8x8 sub-blocks per block, one 64-thread unit each, so a CTA
 // evaluates one candidate at a time; MINB: the CTAs per SM asked of ptxas
 // (__launch_bounds__), which caps the registers at 64; IBC: IDCT scratch
-// ints; FZ0..FZ2: rows of the frozen int operands (B': chroma [2][64];
+// ints; FZ0..FZ2: rows of the frozen int operands (B', A': chroma [2][64];
 // B'' and A'': nu, nv [10][10], y16 [16][16]); pixel: the mode's pixel
 // stage, given the frozen ints fz in shared memory.
 struct Team444 {
@@ -511,8 +513,8 @@ __device__ __forceinline__ void load_state(const State& s,
 
 // One candidate's error by the whole CTA: the coefficients c [192] in
 // shared memory with slot `zero` zeroed (-1: none) -> the mode's pixel
-// stage -> one float stage per unit. B and B': the block's error; B'' and
-// A'': the max over the valid sub-blocks, starting from 0, in sub-block
+// stage -> one float stage per unit. B, B', A, A': the block's error; B''
+// and A'': the max over the valid sub-blocks, starting from 0, in sub-block
 // order. Every thread returns the same value. Eleven barriers.
 template <class M>
 __device__ __forceinline__ float eval_team(const int* c, int zero, float* sf,

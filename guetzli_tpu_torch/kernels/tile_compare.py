@@ -4,7 +4,8 @@ edge replication as per-block 0/1 selection contractions.
 Port of guetzli_tpu/kernels/tile_compare.py (_tile_compare_pallas, body
 _kernel, helper _selection_matrices). The CUDA kernel is
 csrc/tile_compare.cu (one thread per block; the IDCT, the color transform
-and the float stage are compare_block.cuh's, shared with kernel A);
+and the float stage are compare_block.cuh's, which kernel A's team
+evaluation in compare_team.cuh splits over 64 threads);
 ``tile_compare_plain`` below is its plain PyTorch version. For one-hot
 selection matrices the contraction equals the clamp gather of kernel A in
 int32, so C equals A bit for bit on the same blocks.

@@ -5,9 +5,10 @@ Port of guetzli_tpu/kernels/tile_compare_lanes.py (_tile_compare_lanes),
 mode "444" (kernel A), and of the JAX package's XLA compares
 ops/tiles_lanes.compare_blocks_lanes420y / 420c (A' and A'', which the
 zeroing driver needs to check kernels B' and B''). The CUDA kernels are
-csrc/tile_compare_lanes.cu: A and A' run one thread per block (the chain
-in csrc/compare_block.cuh), A'' one CTA per macroblock (the team
-evaluation of csrc/compare_team.cuh that B'' runs). Their plain PyTorch
+csrc/tile_compare_lanes.cu, all three team compares: one CTA per lane
+(block or macroblock) loads its candidates and state into the
+shared-memory layout of the mode's greedy kernel (B, B', B'') and runs
+that kernel's evaluation (csrc/compare_team.cuh). Their plain PyTorch
 versions are ops/tiles_lanes.COMPARE.
 
 ``tile_compare_lanes`` runs the plain version for CPU tensors only. For
@@ -29,7 +30,7 @@ ENTRY = {"444": "tile_compare_lanes", "420y": "tile_compare_lanes_420y",
          "420c": "tile_compare_lanes_420c"}
 
 # The team compares' index in gt_tile_compare_lanes_geometry.
-TEAM = {"420c": 0}
+TEAM = {"420c": 0, "444": 1, "420y": 2}
 
 _tables = {}
 
@@ -133,6 +134,6 @@ def geometry(entry, index, device):
 
 
 def team_geometry(mode, device):
-    """The launch geometry of team compare `mode` ("420c": A'') on
-    `device` (see ``geometry``)."""
+    """The launch geometry of team compare `mode` ("444": A, "420y": A',
+    "420c": A'') on `device` (see ``geometry``)."""
     return geometry("tile_compare_lanes_geometry", TEAM[mode], device)

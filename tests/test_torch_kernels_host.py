@@ -11,8 +11,8 @@ tensors. The shim defines the keywords away and rewrites each launch
 CTAs one after another, each CTA's threads as fibers that run
 concurrently between barriers: ``__syncthreads()`` returns once every
 thread of the CTA has reached it, and a barrier that some threads skip
-fails the launch. The team kernels B, B', B'' and A'' (one CTA per block
-or macroblock, their state in shared memory) rely on that.
+fails the launch. The team kernels B, B', B'', A, A' and A'' (one CTA
+per block or macroblock, their state in shared memory) rely on that.
 
 With -ffp-contract=off (the card's build uses --fmad=false) and IEEE
 division and sqrt on both sides, the host-built kernels equal the plain
@@ -387,20 +387,25 @@ def test_host_built_team_kernels_equal_plain(host_libs, states, mode,
     zeroing.check_final_errors(coeffs_t, out_idx, out_err, lanes, mode)
 
 
-def test_host_built_team_compare_420c(host_libs, states):
-    """The team compare A'' on all 28 macroblocks of bees_d-420 (the last
-    column has invalid sub-blocks) and on each one's first-step
+@pytest.mark.parametrize("mode", ["444", "420y", "420c"])
+def test_host_built_team_compare(host_libs, states, mode):
+    """The team compares A, A' and A'' on every block of bees_d's 4:4:4
+    pass, of bees_d-420's Y pass, or all 28 macroblocks of its chroma pass
+    (the last column has invalid sub-blocks), and on each one's first-step
     candidates (its three best-scored coefficients zeroed in turn): equal
-    to its plain version bit for bit, and to the final errors of the
-    host-built greedy kernel B'' on the macroblocks' finished loops."""
-    blocks, aux, mask = states["420c"]
+    to the plain version bit for bit, and to the final errors of the
+    host-built greedy kernel B, B' or B'' on the blocks' finished loops."""
+    blocks, aux, mask = states[mode]
+    early = mode == "444"
     args, _perm, _inv, _lim = zeroing.loop_inputs(
-        blocks, blocks, np.float32(3.0), aux, mask, CPU, "420c")
+        blocks, blocks, np.float32(_TEAM_LIMIT[mode]), aux, mask, CPU, mode)
     coeffs_t, order_t, nrem, lim, lanes = args
     n = coeffs_t.shape[1]
-    assert n == 28 and int(lanes[-1].reshape(4, n).sum(0).min()) < 4
+    assert n == {"444": 104, "420y": 104, "420c": 28}[mode]
+    if mode == "420c":
+        assert int(lanes[-1].reshape(4, n).sum(0).min()) < 4
     tab = tables.build(CPU)
-    compare = _entry(host_libs, ka.ENTRY["420c"])
+    compare = _entry(host_libs, ka.ENTRY[mode])
 
     def host_a(cand, lanes_m):
         m = cand.shape[-1]
@@ -411,22 +416,23 @@ def test_host_built_team_compare_420c(host_libs, states):
         assert rc == 0
         return out
 
-    # Every macroblock as it stands, then its first step's candidates.
+    # Every block as it stands, then its first step's candidates.
     rows = torch.arange(192)[:, None]
     firsts = [torch.where(rows == order_t[l][None, :], 0, coeffs_t)
               for l in range(3)]
     cand = torch.cat([coeffs_t] + firsts, 1).reshape(3, 8, 8, 4 * n)
     lanes4 = [torch.cat([a] * 4, -1).contiguous() for a in lanes]
     got = host_a(cand.contiguous(), lanes4)
-    assert torch.equal(got, tl.COMPARE["420c"](cand.contiguous(), *lanes4))
+    assert torch.equal(got, tl.COMPARE[mode](cand.contiguous(), *lanes4))
     assert bool(torch.isfinite(got).all()) and float(got.max()) > 0
-    # The last error of B'' in each block equals A'' on its final coefficients.
+    # The last error of the greedy kernel in each block equals the compare
+    # on its final coefficients.
     out_idx = torch.empty((192, n), dtype=torch.int32)
     out_err = torch.empty((192, n))
-    rc = _entry(host_libs, zl.ENTRY["420c"])(
+    rc = _entry(host_libs, zl.ENTRY[mode])(
         coeffs_t.data_ptr(), order_t.data_ptr(), nrem.data_ptr(),
         lim.data_ptr(), *[a.data_ptr() for a in lanes], tab.data_ptr(),
-        out_idx.data_ptr(), out_err.data_ptr(), n, 3, 0, None)
+        out_idx.data_ptr(), out_err.data_ptr(), n, 3, int(early), None)
     assert rc == 0
     steps = torch.isfinite(out_err).sum(0)
     final = coeffs_t.clone()
@@ -441,19 +447,25 @@ def test_host_built_team_compare_420c(host_libs, states):
 
 def test_host_team_geometry(host_libs):
     """The geometry entry points of the team kernels: one unit of 64
-    threads per 8x8 block (B and B': one, B'' and A'': four), the dynamic
-    shared memory of each CTA within the 48 KB a launch may take without
-    asking; A'' takes the layout of B''."""
+    threads per 8x8 block (B, B', A and A': one, B'' and A'': four), the
+    dynamic shared memory of each CTA within the 48 KB a launch may take
+    without asking. A, A' and A'' take the layouts of B, B' and
+    B''."""
     got = []
     for entry, mode in (("zeroing_loop_geometry", 0),
                         ("zeroing_loop_geometry", 2),
                         ("zeroing_loop_geometry", 1),
-                        ("tile_compare_lanes_geometry", 0)):
+                        ("tile_compare_lanes_geometry", 0),
+                        ("tile_compare_lanes_geometry", 1),
+                        ("tile_compare_lanes_geometry", 2)):
         fn = _entry(host_libs, entry)
         vals = [ctypes.c_int(-1) for _ in range(3)]
         assert fn(mode, *[ctypes.byref(v) for v in vals]) == 0
         got.append([v.value for v in vals])
-    assert [g[0] for g in got] == [64, 64, 256, 256]
+    assert [g[0] for g in got] == [64, 64, 256, 256, 64, 64]
     assert 0 < got[1][1] < got[0][1] < got[2][1] <= 48 * 1024
-    assert got[3] == got[2]
+    assert got[3:] == [got[2], got[0], got[1]]
     assert all(g[2] == 1 for g in got)
+    bad = ctypes.c_int(0)
+    assert _entry(host_libs, "tile_compare_lanes_geometry")(
+        3, ctypes.byref(bad), ctypes.byref(bad), ctypes.byref(bad)) != 0
