@@ -10,18 +10,23 @@ main paths' shapes, and times them:
   * 4:4:4, on tests/corpus/photo_mosaic1.png (1444x908): the block compare
     A and the greedy zeroing kernel B (mode "444"), and the blocks-leading
     compare C on A's lanes (equal to A bit for bit), then the opt-in
-    greedy pass "444p" (the staged loop with C per step) against B's CSR;
+    greedy pass "444p" (the staged loop with C per step) against B's CSR,
+    with the wall of the pass, C's launches in it, the summed event
+    windows of its wrapper (the five operand moves of compare_lanes with
+    the launch) and of the launch alone, and C's summed device time from a
+    torch.profiler trace of a second pass;
   * 4:2:0, on tests/corpus/photo_mosaic1-420.jpg read by the port's JPEG
     reader: the Y pass (A' and B', mode "420y", comp_mask 1) and the chroma
     pass over 16x16 macroblocks (A'' and B'', mode "420c", comp_mask 6).
 
 The greedy kernels' rails must equal the plain loop's on every block
-row, and the team compares (A, A' and A'') must equal their plain
-versions bit for bit. For the team kernels (B, B', B'', A, A' and A'',
-one CTA per 8x8 block or 16x16 macroblock) it also prints the launch
-geometry (threads and shared memory per CTA, CTAs per SM) and ptxas's
-registers and stack, and records the share of the operation bound; its
-log line sets the time beside the per-thread design's.
+row, and the team compares (A, A', A'' and C) must equal their plain
+versions bit for bit. For every kernel (all seven are team kernels: B,
+B', B'', A, A', A'' and C, one CTA per 8x8 block or 16x16 macroblock) it
+also prints the launch geometry (threads and shared memory per CTA, CTAs
+per SM) and ptxas's registers and stack, and records the share of the
+operation bound; its log line sets the time beside the per-thread
+design's.
 
 Then it drives the paths end to end on the card, each with the launch
 counts set to 0 just before it and read just after:
@@ -91,11 +96,13 @@ PEAK_BYTES = 3.35e12
 
 # The team kernels in their per-thread design (one thread runs a block's
 # whole loop or compare), ms on an NVIDIA H100 80GB HBM3 at 700 W, at the
-# shapes of phase_greedy and phase_compare (PERF.md, section 6), for the
-# log only: the kernels' JSON record holds this run's numbers alone.
+# shapes of phase_greedy, phase_compare and phase_tile_compare (PERF.md,
+# section 6), for the log only: the kernels' JSON record holds this run's
+# numbers alone.
 PREV_MS = {"zeroing_loop": 150.3, "zeroing_loop_420c": 267.7,
            "zeroing_loop_420y": 57.25, "tile_compare_lanes_420c": 1.507,
-           "tile_compare_lanes": 1.027, "tile_compare_lanes_420y": 1.021}
+           "tile_compare_lanes": 1.027, "tile_compare_lanes_420y": 1.021,
+           "tile_compare": 1.097}
 
 
 def log(*a):
@@ -104,7 +111,7 @@ def log(*a):
 
 def compare_block_ops(mode):
     """Float and integer operations of one block evaluation in `mode`,
-    counted from csrc/compare_block.cuh (an 8-term contraction output is 8
+    counted from csrc/compare_team.cuh (an 8-term contraction output is 8
     multiplies and 7 adds)."""
     c8 = 15
     idct = 2 * 64 * c8                      # integer: two passes, 1 channel
@@ -430,7 +437,8 @@ def phase_tile_compare(state, dev):
     """Kernel C on the lanes of phase_compare("444"), moved to blocks
     leading, with the selection matrices of the block state: against its
     plain version and against kernel A on the same lanes, both bit for
-    bit."""
+    bit; and against its plain version with rows that no edge clamp
+    gives."""
     from guetzli_tpu_torch.kernels import tile_compare as kc
     from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
     ct, lanes, r = first_step("444", state, dev)
@@ -453,22 +461,65 @@ def phase_tile_compare(state, dev):
     if not (same_plain and same_a):
         raise RuntimeError("%s disagrees with its plain version or with "
                            "kernel A" % kc.ENTRY)
+    # Rows that no edge clamp gives: one or two ones, or none.
+    rng = np.random.default_rng(0)
+    eye = np.eye(8, dtype=np.int32)
+
+    def general(m):
+        m = m.cpu().numpy()
+        m = np.maximum(m, eye[rng.integers(0, 8, m.shape[:2])])
+        m = m * (rng.random(m.shape[:2]) >= 0.125)[..., None]
+        return torch.as_tensor(m.astype(np.int32), device=dev)
+    gen = args[:3] + (general(sy), general(sx))
+    same_gen = bool(torch.equal(kc.tile_compare(*gen),
+                                kc.tile_compare_plain(*gen)))
+    log("%s vs plain with general 0/1 selection rows: bit-equal %s"
+        % (kc.ENTRY, same_gen))
+    if not same_gen:
+        raise RuntimeError("%s disagrees with its plain version on general "
+                           "selection rows" % kc.ENTRY)
     ms = time_cuda(lambda: kc.tile_compare(*args), 10)
     plain_ms = time_cuda(lambda: kc.tile_compare_plain(*args), 3)
     b_ms, by = bound_ms("444p", n, n * compare_bytes("444p"))
     log("%s: %.4f ms (median of 10), plain %.3f ms, bound %.4f ms (%s)"
         % (kc.ENTRY, ms, plain_ms, b_ms, by))
-    return {"name": kc.ENTRY, "route": "cuda",
-            "source": "guetzli_tpu_torch/csrc/tile_compare.cu",
-            "replaces": "guetzli_tpu/kernels/tile_compare.py:430",
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    rec = {"name": kc.ENTRY, "route": "cuda",
+           "source": "guetzli_tpu_torch/csrc/tile_compare.cu",
+           "replaces": "guetzli_tpu/kernels/tile_compare.py:430",
+           "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    team_report(rec, "tile_compare", kc.team_geometry(dev), "block")
+    return rec
+
+
+def _event_windows(module, names, windows):
+    """Wraps module.<name> for each of `names` so that every call records
+    CUDA events around it into windows[name]; returns the originals."""
+    orig = {n: getattr(module, n) for n in names}
+
+    def wrap(name):
+        def call(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = orig[name](*a, **k)
+            ev[1].record()
+            windows[name].append(ev)
+            return out
+        return call
+    for n in names:
+        setattr(module, n, wrap(n))
+    return orig
 
 
 def phase_greedy_444p(state, dev):
     """The opt-in greedy pass "444p" on photo_mosaic1: the staged loop
     with kernel C per step, whose CSR must equal fused B's bit for bit.
-    Returns C's launches in the pass."""
+    Logs the pass's wall and C's launches, then, from a second pass, the
+    summed CUDA-event windows of compare_lanes (the five operand moves and
+    the launch) and of tile_compare (the checks, the allocation and the
+    kernel), and from a third under torch.profiler, C's summed device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
     from guetzli_tpu_torch.kernels import tile_compare as kc
     from guetzli_tpu_torch.search import zeroing
     blocks, orig, aux, mask = state
@@ -477,11 +528,14 @@ def phase_greedy_444p(state, dev):
     aux_p = (x0, sc) + kc.selection_matrices(ysel, xsel)
     fused = zeroing.compute_zeroing_csr(blocks, orig, limit, aux, mask, dev,
                                         mode="444", fused=True)
+
+    def run():
+        return zeroing.compute_zeroing_csr(blocks, orig, limit, aux_p, mask,
+                                           dev, mode="444p")
     kc.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
-    staged = zeroing.compute_zeroing_csr(blocks, orig, limit, aux_p, mask,
-                                         dev, mode="444p")
+    staged = run()
     torch.cuda.synchronize()
     wall = time.time() - t0
     n = kc.launches
@@ -492,6 +546,30 @@ def phase_greedy_444p(state, dev):
     if not same or n == 0:
         raise RuntimeError("mode 444p: CSR differs from B's or C was not "
                            "launched")
+    names = ("compare_lanes", "tile_compare")
+    windows = {k: [] for k in names}
+    saved = _event_windows(kc, names, windows)
+    try:
+        run()
+    finally:
+        for k, fn in saved.items():
+            setattr(kc, k, fn)
+    torch.cuda.synchronize()
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in windows.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if "tile_compare_kernel" in e.key) / 1e3
+    dev_n = sum(e.count for e in prof.key_averages()
+                if "tile_compare_kernel" in e.key)
+    log("mode 444p event windows over %d steps: compare_lanes %.2f ms, "
+        "tile_compare %.2f ms; %s device time under torch.profiler %s"
+        % (len(windows["tile_compare"]), ms["compare_lanes"],
+           ms["tile_compare"], kc.ENTRY,
+           "%.3f ms in %d launches" % (dev_ms, dev_n) if dev_n
+           else "not measured (the trace holds no such kernel)"))
     return n
 
 

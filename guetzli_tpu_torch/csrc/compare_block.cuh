@@ -1,23 +1,25 @@
 // One block's CompareBlock error (butteraugli_comparator.cc:113-163): the
-// table layout, the helpers of the pixel stage and the per-thread float
-// stage, shared by the kernels of this directory.
+// table layout and the per-pixel helpers that every kernel of this
+// directory shares; compare_team.cuh computes the error from them.
 //
 // Replaces the per-lane evaluation chain of the TPU kernels
-// guetzli_tpu/kernels/tile_compare_lanes.py::_kernel and
+// guetzli_tpu/kernels/tile_compare_lanes.py::_kernel,
+// guetzli_tpu/kernels/tile_compare.py::_kernel and
 // guetzli_tpu/kernels/zeroing_loop.py::_eval_lanes / _eval_lanes_420c /
 // _finish_lanes_k (the jnp chain of guetzli_tpu/ops/tiles_lanes.py).
 //
 // Two stages. The pixel stage is integer and differs by mode: integer IDCT
 // (>>11, >>18, clip) -> edge replication -> fixed-point YCbCr->RGB ->
 // sRGB->linear by table. Mode 444 converts all three channels of one 8x8
-// block; 420y only its Y channel, against frozen chroma bytes; 420c
-// rebuilds a 16x16 macroblock's chroma (IDCT into a frozen 10x10
-// neighbourhood, fancy upsample, dither: neigh_at and up_byte below) and
-// converts each of its four 8x8 sub-blocks against frozen Y bytes
-// (compare_team.cuh holds the three pixel stages). The float stage is one
-// and the same for all: 8x8 opsin (tile-confined blur, Clenshaw gamma) ->
-// MaskHighIntensityChange against the original -> DFT8 block diff (dc /
-// ac / edge) -> sqrt((1-w) * sum_c (dc+ac)*sc + w * sum_c edge*sc).
+// block (kernel C replicates the edge by 0/1 selection contractions, the
+// others by a clamp gather); 420y only its Y channel, against frozen
+// chroma bytes; 420c rebuilds a 16x16 macroblock's chroma (IDCT into a
+// frozen 10x10 neighbourhood, fancy upsample, dither: neigh_at and
+// up_byte below) and converts each of its four 8x8 sub-blocks against
+// frozen Y bytes. The float stage is one and the same for all: 8x8 opsin
+// (tile-confined blur, Clenshaw gamma) -> MaskHighIntensityChange against
+// the original -> DFT8 block diff (dc / ac / edge) -> sqrt((1-w) * sum_c
+// (dc+ac)*sc + w * sum_c edge*sc). compare_team.cuh holds both stages.
 //
 // Numerics. Every float operation is written in the order of the plain
 // PyTorch version (guetzli_tpu_torch/ops/tiles_lanes.py): fixed-order
@@ -29,21 +31,15 @@
 // the wrapper evaluates with the plain version's closed form on the same
 // device, so it is that function exactly.
 //
-// Bound. About 10^5 float operations per block evaluation on ~1.5 KB of
-// per-block state: arithmetic, not bytes, bounds it. This file holds the
-// per-thread float stage (finish_block), which keeps the whole state of
-// one block in one thread (local memory, cached in L1) with the tables in
-// shared memory: kernel C runs it. The team kernels (compare_team.cuh: B,
-// B', B'', A, A' and A'') split the same evaluation over 64 threads per
-// 8x8 block and reuse the helpers here (color transform, table reads, the
-// 420c upsample).
+// Bound. About 5*10^4 float operations per block evaluation on ~1.5 KB of
+// per-block state: arithmetic, not bytes, bounds it.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 // Layout of the float table buffer (guetzli_tpu_torch/kernels/tables.py
-// builds it; tests/test_torch_kernels.py holds the two in step).
+// builds it; tests/test_torch_isolation.py holds the two in step).
 #define T_IDCT 0        // [8][8] integer IDCT matrix, stored as floats
 #define T_BLUR 64       // [8][8] in-tile opsin blur matrix
 #define T_DFT_RE 128    // [8][8]
@@ -140,83 +136,9 @@ __device__ __forceinline__ float mix3(const float* m, float a, float b,
   return (m[0] * a + m[1] * b) + m[2] * c;
 }
 
-// |2-D DFT|^2 of x[y*8+x] -> out[u*8+v] (u: x frequency, v: y frequency).
-__device__ void fft8_sq(const float* T, const float* x, float* out) {
-  const float* RE = T + T_DFT_RE;
-  const float* IM = T + T_DFT_IM;
-  const float mul = T[T_SCAL + S_FFTMUL];
-  float t1r[64], t1i[64];
-  // t1[u][y] = sum_j W[u][j] * x[y][j]
-  for (int u = 0; u < 8; ++u) {
-    for (int y = 0; y < 8; ++y) {
-      float ar = RE[u * 8] * x[y * 8];
-      float ai = IM[u * 8] * x[y * 8];
-      for (int j = 1; j < 8; ++j) {
-        ar = ar + RE[u * 8 + j] * x[y * 8 + j];
-        ai = ai + IM[u * 8 + j] * x[y * 8 + j];
-      }
-      t1r[u * 8 + y] = ar;
-      t1i[u * 8 + y] = ai;
-    }
-  }
-  for (int u = 0; u < 8; ++u) {
-    for (int v = 0; v < 8; ++v) {
-      float rr = RE[v * 8] * t1r[u * 8];
-      float ii = IM[v * 8] * t1i[u * 8];
-      float ir = IM[v * 8] * t1r[u * 8];
-      float ri = RE[v * 8] * t1i[u * 8];
-      for (int j = 1; j < 8; ++j) {
-        rr = rr + RE[v * 8 + j] * t1r[u * 8 + j];
-        ii = ii + IM[v * 8 + j] * t1i[u * 8 + j];
-        ir = ir + IM[v * 8 + j] * t1r[u * 8 + j];
-        ri = ri + RE[v * 8 + j] * t1i[u * 8 + j];
-      }
-      float gr = rr - ii;
-      float gi = ir + ri;
-      out[u * 8 + v] = (gr * gr + gi * gi) * mul;
-    }
-  }
-}
-
-// sum over v of (sum over u of d[u][v] * x[u][v]), both sequential.
-__device__ __forceinline__ float wsum(const float* T, const float* x) {
-  const float* d = T + T_CSF;
-  float total = 0.0f;
-  for (int v = 0; v < 8; ++v) {
-    float s = d[v] * x[v];
-    for (int u = 1; u < 8; ++u) s = s + d[u * 8 + v] * x[u * 8 + v];
-    total = (v == 0) ? s : total + s;
-  }
-  return total;
-}
-
 __device__ __forceinline__ float remove_range(float v, float rng) {
   if (v >= -rng && v < rng) return 0.0f;
   return (v < 0.0f) ? v + rng : v - rng;
-}
-
-// Integer IDCT of one channel (ComputeBlockIDCT, idct.cc:139-161): 64
-// dequantized coefficients c[u*8 + x] -> bytes v[y*8 + x] in 0..255.
-__device__ __forceinline__ void idct_block(const int* c, int* v,
-                                           const float* T) {
-  int col[64];
-  for (int i = 0; i < 8; ++i) {
-    for (int x = 0; x < 8; ++x) {
-      int acc = (int)T[T_IDCT + i * 8] * c[x];
-      for (int j = 1; j < 8; ++j)
-        acc += (int)T[T_IDCT + i * 8 + j] * c[j * 8 + x];
-      col[i * 8 + x] = (acc + (1 << 10)) >> 11;
-    }
-  }
-  for (int y = 0; y < 8; ++y) {
-    for (int i = 0; i < 8; ++i) {
-      int acc = (int)T[T_IDCT + i * 8] * col[y * 8];
-      for (int j = 1; j < 8; ++j)
-        acc += (int)T[T_IDCT + i * 8 + j] * col[y * 8 + j];
-      acc = (acc + (257 << 17)) >> 18;
-      v[y * 8 + i] = acc < 0 ? 0 : (acc > 255 ? 255 : acc);
-    }
-  }
 }
 
 // The pixel stage's last step: fixed-point YCbCr -> RGB bytes
@@ -246,185 +168,6 @@ __device__ __forceinline__ void store_linear(float* lin, int p, float3 v) {
   lin[128 + p] = v.z;
 }
 
-// The float stage, shared by every mode (the twin of _finish_lanes_k,
-// guetzli_tpu/kernels/zeroing_loop.py:56): lin [3 * 64] linear RGB of the
-// candidate block (channel-major); x0: the block's original opsin tile,
-// element e at x0[e * stride]; sc0..sc2: whole-image mask scales; T: the
-// table buffer (shared memory). Opsin, MaskHighIntensityChange, block
-// diff and the weighted error.
-__device__ __forceinline__ float finish_block(const float* lin,
-                                              const float* __restrict__ x0,
-                                              long stride, float sc0,
-                                              float sc1, float sc2,
-                                              const float* T) {
-  const float* S = T + T_SCAL;
-
-  // Opsin: tile-confined blur (y pass, then x pass), then the dynamics.
-  float xyb1[3][64];
-  {
-    const float* B = T + T_BLUR;
-    float blurred[3][64];
-    for (int ch = 0; ch < 3; ++ch) {
-      float tmp[64];
-      for (int i = 0; i < 8; ++i)
-        for (int x = 0; x < 8; ++x) {
-          float acc = B[i * 8] * lin[ch * 64 + x];
-          for (int j = 1; j < 8; ++j)
-            acc = acc + B[i * 8 + j] * lin[ch * 64 + j * 8 + x];
-          tmp[i * 8 + x] = acc;
-        }
-      for (int y = 0; y < 8; ++y)
-        for (int i = 0; i < 8; ++i) {
-          float acc = B[i * 8] * tmp[y * 8];
-          for (int j = 1; j < 8; ++j)
-            acc = acc + B[i * 8 + j] * tmp[y * 8 + j];
-          blurred[ch][y * 8 + i] = acc;
-        }
-    }
-    for (int p = 0; p < 64; ++p) {
-      float cur[3];
-      for (int k = 0; k < 3; ++k) {
-        const float* m = S + S_MIX + 3 * k;
-        float pre = mix3(m, blurred[0][p], blurred[1][p], blurred[2][p]) +
-                    S[S_BIAS + k];
-        float sens = gamma_fn(S, pre) / pre;
-        cur[k] = (mix3(m, lin[p], lin[64 + p], lin[128 + p]) +
-                  S[S_BIAS + k]) *
-                 sens;
-      }
-      for (int k = 0; k < 3; ++k)
-        xyb1[k][p] = mix3(S + S_XYB + 3 * k, cur[0], cur[1], cur[2]);
-    }
-  }
-
-  // MaskHighIntensityChange against the original tile.
-  float m0[3][64], m1[3][64];
-  {
-    float t0[3][64];
-    for (int ch = 0; ch < 3; ++ch)
-      for (int p = 0; p < 64; ++p) t0[ch][p] = x0[(ch * 64 + p) * stride];
-    float ave[3][64];
-    for (int ch = 0; ch < 3; ++ch)
-      for (int p = 0; p < 64; ++p)
-        ave[ch][p] = (t0[ch][p] + xyb1[ch][p]) * 0.5f;
-    const float red0 = S[S_RED], red1 = S[S_RED + 1], red2 = S[S_RED + 2];
-    const float chroma = S[S_CHROMA];
-    for (int y = 0; y < 8; ++y) {
-      for (int x = 0; x < 8; ++x) {
-        int p = y * 8 + x;
-        float yc = ave[1][p];
-        float d;
-        d = (x >= 1) ? ave[1][p - 1] - yc : 0.0f;
-        float sl = (x >= 1) ? d * d : -1.0f;
-        d = (x <= 6) ? ave[1][p + 1] - yc : 0.0f;
-        float sr = (x <= 6) ? d * d : -1.0f;
-        d = (y >= 1) ? ave[1][p - 8] - yc : 0.0f;
-        float su = (y >= 1) ? d * d : -1.0f;
-        d = (y <= 6) ? ave[1][p + 8] - yc : 0.0f;
-        float sd = (y <= 6) ? d * d : -1.0f;
-        float sqr_max = max_nan(max_nan(sl, sr), max_nan(su, sd));
-        float chroma_scale = chroma / (yc + chroma);
-        float mix[3];
-        mix[0] = (chroma_scale * red0) / (sqr_max + red0);
-        mix[1] = red1 / (sqr_max + red1);
-        mix[2] = (chroma_scale * red2) / (sqr_max + red2);
-        for (int ch = 0; ch < 3; ++ch) {
-          float a = (1.0f - mix[ch]) * ave[ch][p];
-          m0[ch][p] = mix[ch] * t0[ch][p] + a;
-          m1[ch][p] = mix[ch] * xyb1[ch][p] + a;
-        }
-      }
-    }
-  }
-
-  // Block diff: DC and edge terms from the plain difference.
-  float dc[3], edge[3];
-  {
-    float avg[3], ed[4][3];
-    for (int ch = 0; ch < 3; ++ch) {
-      float colm[8];
-      for (int x = 0; x < 8; ++x) {
-        float s = m0[ch][x] - m1[ch][x];
-        for (int y = 1; y < 8; ++y)
-          s = s + (m0[ch][y * 8 + x] - m1[ch][y * 8 + x]);
-        colm[x] = s * 0.125f;
-      }
-      float s = colm[0];
-      for (int x = 1; x < 8; ++x) s = s + colm[x];
-      avg[ch] = s * 0.125f;
-      // Edges: column x=0, row y=0, column x=7, row y=7.
-      float e0 = m0[ch][0] - m1[ch][0];
-      float e1 = e0;
-      float e2 = m0[ch][7] - m1[ch][7];
-      float e3 = m0[ch][56] - m1[ch][56];
-      for (int i = 1; i < 8; ++i) {
-        e0 = e0 + (m0[ch][i * 8] - m1[ch][i * 8]);
-        e1 = e1 + (m0[ch][i] - m1[ch][i]);
-        e2 = e2 + (m0[ch][i * 8 + 7] - m1[ch][i * 8 + 7]);
-        e3 = e3 + (m0[ch][56 + i] - m1[ch][56 + i]);
-      }
-      ed[0][ch] = e0 * 0.125f;
-      ed[1][ch] = e1 * 0.125f;
-      ed[2][ch] = e2 * 0.125f;
-      ed[3][ch] = e3 * 0.125f;
-    }
-    const float csf0 = S[S_CSF0];
-    float qx, qy, qz;
-    low_freq_sq(S, avg[0], avg[1], avg[2], &qx, &qy, &qz);
-    dc[0] = qx * csf0;
-    dc[1] = qy * csf0;
-    dc[2] = qz * csf0;
-    float sx = 0.0f, sy = 0.0f, sz = 0.0f;
-    for (int k = 0; k < 4; ++k) {
-      low_freq_sq(S, ed[k][0], ed[k][1], ed[k][2], &qx, &qy, &qz);
-      sx = (k == 0) ? qx : sx + qx;
-      sy = (k == 0) ? qy : sy + qy;
-      sz = (k == 0) ? qz : sz + qz;
-    }
-    edge[0] = sx * csf0;
-    edge[1] = sy * csf0;
-    edge[2] = sz * csf0;
-  }
-
-  // Block diff: AC terms from the DFTs of the half difference and the
-  // average.
-  float ac[3];
-  {
-    float buf[64], f[64];
-    for (int p = 0; p < 64; ++p) buf[p] = (m0[0][p] - m1[0][p]) * 0.5f;
-    fft8_sq(T, buf, f);
-    ac[0] = wsum(T, f) * S[S_ACX];
-    for (int p = 0; p < 64; ++p) buf[p] = (m0[2][p] - m1[2][p]) * 0.5f;
-    fft8_sq(T, buf, f);
-    ac[2] = wsum(T, f) * S[S_ACZ];
-    float ya[64];
-    for (int p = 0; p < 64; ++p) buf[p] = (m0[1][p] + m1[1][p]) * 0.5f;
-    fft8_sq(T, buf, ya);
-    for (int p = 0; p < 64; ++p) buf[p] = (m0[1][p] - m1[1][p]) * 0.5f;
-    fft8_sq(T, buf, f);
-    const float rng = S[S_YLIM];
-    const float ymul2 = S[S_ACY2];
-    for (int p = 0; p < 64; ++p) {
-      float a = sqrtf(ya[p]);
-      float h = sqrtf(f[p]);
-      float y0 = remove_range(a - h, rng);
-      float y1 = remove_range(a + h, rng);
-      float valy = S[S_ACY] * (pw_progression(S + S_HFDY, y0 * ymul2) -
-                               pw_progression(S + S_HFDY, y1 * ymul2));
-      buf[p] = valy * valy;
-    }
-    ac[1] = wsum(T, buf);
-  }
-
-  float diff = (dc[0] + ac[0]) * sc0;
-  diff = diff + (dc[1] + ac[1]) * sc1;
-  diff = diff + (dc[2] + ac[2]) * sc2;
-  float diff_edge = edge[0] * sc0;
-  diff_edge = diff_edge + edge[1] * sc1;
-  diff_edge = diff_edge + edge[2] * sc2;
-  return sqrtf(S[S_1MEW] * diff + S[S_EW] * diff_edge);
-}
-
 // Entry (i, j) of a chroma channel's 10x10 x16 neighbourhood with the
 // candidate's IDCT bytes v shifted << 4 into the interior [1..8]x[1..8];
 // the frame comes from the frozen neighbourhood nb[10][10].
@@ -446,14 +189,6 @@ __device__ __forceinline__ int up_byte(const int* v, const int* nb, int y,
   int s = (9 * neigh_at(v, nb, cy, cx) + 3 * neigh_at(v, nb, cy, cx2) +
            3 * neigh_at(v, nb, cy2, cx) + neigh_at(v, nb, cy2, cx2)) >> 4;
   return (s + 8 - (x & 1)) >> 4;
-}
-
-// Copies the table buffer into shared memory; every thread of the block
-// must call it.
-__device__ __forceinline__ void load_tables(const float* __restrict__ g,
-                                            float* s) {
-  for (int i = threadIdx.x; i < N_TABLES; i += blockDim.x) s[i] = g[i];
-  __syncthreads();
 }
 
 }  // namespace gtk

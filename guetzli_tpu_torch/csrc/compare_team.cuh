@@ -1,14 +1,17 @@
-// The block evaluation of compare_block.cuh done by a team of threads:
-// one unit of 64 threads (one pixel or one contraction output per thread)
-// per 8x8 block, every intermediate in shared memory. Used by the
-// greedy kernels B, B' and B'' (zeroing_loop.cu) and by the compares A,
-// A' and A'' (tile_compare_lanes.cu) that check them.
+// One block's CompareBlock error (butteraugli_comparator.cc:113-163)
+// computed by a team of threads, with the table layout and helpers of
+// compare_block.cuh: one unit of 64 threads (one pixel or one contraction
+// output per thread) per 8x8 block, every intermediate in shared memory.
+// Used by every kernel of this directory: the greedy kernels B, B' and B''
+// (zeroing_loop.cu), the compares A, A' and A'' (tile_compare_lanes.cu)
+// that check them, and the blocks-leading compare C (tile_compare.cu).
 //
 // Replaces the evaluation of the TPU kernels
 // guetzli_tpu/kernels/zeroing_loop.py (_greedy_kernel, :146;
-// zeroing_loop_lanes, :301) in its three modes "444", "420y" and "420c"
-// and guetzli_tpu/kernels/tile_compare_lanes.py (_tile_compare_lanes,
-// :119), and the XLA compares guetzli_tpu/ops/tiles_lanes.py:331 and :380
+// zeroing_loop_lanes, :301) in its three modes "444", "420y" and "420c",
+// guetzli_tpu/kernels/tile_compare_lanes.py (_tile_compare_lanes, :119)
+// and guetzli_tpu/kernels/tile_compare.py (_tile_compare_pallas, :430),
+// and the XLA compares guetzli_tpu/ops/tiles_lanes.py:331 and :380
 // (compare_blocks_lanes420y, compare_blocks_lanes420c).
 //
 // Bound. Operations: ~5*10^4 float operations per float stage on ~1.5 KB
@@ -23,13 +26,13 @@
 // 4 of them share an SM, so one CTA's barriers and one-thread tails are
 // hidden by the others.
 //
-// Numerics. The same bits as compare_block.cuh: every 8-point contraction
-// output is computed by one thread in the plain version's fixed order,
-// and every sum the plain version takes sequentially (column means,
-// edges, wsum, the three-channel diff) is taken sequentially by one
-// thread: eight threads take one 8-term partial each and one thread adds
-// the eight in order, which is the plain order. No tree reductions, warp
-// shuffles or atomics; built with --fmad=false.
+// Numerics. Every float operation is in the order of the plain PyTorch
+// version: every 8-point contraction output is computed by one thread in
+// the plain version's fixed order, and every sum the plain version takes
+// sequentially (column means, edges, wsum, the three-channel diff) is
+// taken sequentially by one thread: eight threads take one 8-term partial
+// each and one thread adds the eight in order, which is the plain order.
+// No tree reductions, warp shuffles or atomics; built with --fmad=false.
 //
 // Barriers. Every thread of the CTA calls every function below that
 // contains __syncthreads(); a unit whose 420c sub-block is invalid passes
@@ -93,6 +96,21 @@ __device__ __forceinline__ int idct_row(const int* col, int hi,
   return acc < 0 ? 0 : (acc > 255 ? 255 : acc);
 }
 
+// The IDCT of a unit's three channels: the block's coefficients c [192]
+// with slot `zero` zeroed -> bytes in ib[192..383] (ib[0..191]: the IDCT
+// columns). Two barriers.
+__device__ __forceinline__ void idct_444_team(const int* c, int zero,
+                                              int* ib, const Rows& R,
+                                              int p) {
+  const int hi = p >> 3, lo = p & 7;
+  for (int ch = 0; ch < 3; ++ch)
+    ib[ch * 64 + lo * 8 + hi] = idct_col(c + ch * 64, zero - ch * 64, hi, R);
+  __syncthreads();
+  for (int ch = 0; ch < 3; ++ch)
+    ib[192 + ch * 64 + p] = idct_row(ib + ch * 64, hi, R);
+  __syncthreads();
+}
+
 // Mode 444 pixel stage of one unit (one candidate): the block's
 // coefficients c [192] with slot `zero` zeroed -> IDCT -> edge replication
 // -> linear RGB in LIN [3][64]. ib: the unit's int scratch [2][192] (IDCT
@@ -103,17 +121,52 @@ __device__ __forceinline__ void pixel_444_team(const int* c, int zero,
                                                const float* T, const Rows& R,
                                                int p) {
   const int hi = p >> 3, lo = p & 7;
-  for (int ch = 0; ch < 3; ++ch)
-    ib[ch * 64 + lo * 8 + hi] = idct_col(c + ch * 64, zero - ch * 64, hi, R);
-  __syncthreads();
-  for (int ch = 0; ch < 3; ++ch)
-    ib[192 + ch * 64 + p] = idct_row(ib + ch * 64, hi, R);
-  __syncthreads();
+  idct_444_team(c, zero, ib, R, p);
   const int sy = hi <= ymax ? hi : ymax, sx = lo <= xmax ? lo : xmax;
   const int q = sy * 8 + sx;
   const int* v = ib + 192;
   gtk::store_linear(LIN, p,
                     gtk::ycc_to_linear(v[q], v[64 + q], v[128 + q], T));
+  __syncthreads();
+}
+
+// Mode 444 pixel stage of kernel C (one unit, one candidate): the
+// block's coefficients c [192] with slot `zero` zeroed -> IDCT -> the
+// edge replication as two 0/1 selection contractions, as the TPU kernel
+// computes it (guetzli_tpu/kernels/tile_compare.py:341-365), rows by
+// sy[i*8 + j], then columns by sx[i*8 + j] (both in shared memory) ->
+// linear RGB in LIN [3][64]. ib: the unit's int scratch [2][192] (IDCT
+// columns, then bytes; row-selected bytes, then selected bytes). The sums
+// are int32 and exact, j in order as in the plain version; for one-hot
+// rows they are the clamp gather of pixel_444_team. Five barriers.
+__device__ __forceinline__ void pixel_444_sel_team(const int* c, int zero,
+                                                   int* ib, float* LIN,
+                                                   const int* sy,
+                                                   const int* sx,
+                                                   const float* T,
+                                                   const Rows& R, int p) {
+  const int hi = p >> 3, lo = p & 7;
+  idct_444_team(c, zero, ib, R, p);
+  // Rows, output (i, x) = (hi, lo): t[i*8 + x] = sum_j sy[i][j] * v[j*8 + x].
+  for (int ch = 0; ch < 3; ++ch) {
+    const int* v = ib + 192 + ch * 64;
+    int acc = sy[hi * 8] * v[lo];
+    for (int j = 1; j < 8; ++j) acc += sy[hi * 8 + j] * v[j * 8 + lo];
+    ib[ch * 64 + p] = acc;
+  }
+  __syncthreads();
+  // Columns, output (y, i) = (hi, lo): v[y*8 + i] = sum_j sx[i][j] *
+  // t[y*8 + j].
+  for (int ch = 0; ch < 3; ++ch) {
+    const int* t = ib + ch * 64 + hi * 8;
+    int acc = sx[lo * 8] * t[0];
+    for (int j = 1; j < 8; ++j) acc += sx[lo * 8 + j] * t[j];
+    ib[192 + ch * 64 + p] = acc;
+  }
+  __syncthreads();
+  const int* v = ib + 192;
+  gtk::store_linear(LIN, p, gtk::ycc_to_linear(v[p], v[64 + p], v[128 + p],
+                                               T));
   __syncthreads();
 }
 
@@ -171,7 +224,9 @@ __device__ __forceinline__ void pixel_420c_team(
   __syncthreads();
 }
 
-// The float stage (compare_block.cuh finish_block) by one unit. U: the
+// The float stage by one unit (the twin of _finish_lanes_k,
+// guetzli_tpu/kernels/zeroing_loop.py:56): opsin, MaskHighIntensityChange
+// against the original, block diff and the weighted error. U: the
 // unit's scratch, U[F_LIN..] holding the candidate's linear RGB; x0: the
 // original opsin tile [3][64] in shared memory; sc: its three scales; p:
 // the thread's index in the unit. Thread 0 of an active unit writes the
@@ -403,10 +458,10 @@ __device__ __forceinline__ void finish_team(float* U,
 // ---- The team kernels: modes, shared memory, state, one evaluation -----
 //
 // Shared by the greedy kernels B, B', B'' (zeroing_loop.cu) and the team
-// compares A, A', A'' (tile_compare_lanes.cu): each greedy kernel and the
-// compare that checks it on the search path load the same state into the
-// same layout and run the same evaluation, so their errors agree by
-// construction.
+// compares A, A', A'' (tile_compare_lanes.cu) and C (tile_compare.cu):
+// each greedy kernel and the compare that checks it on the search path
+// load the same state into the same layout and run the same evaluation,
+// so their errors agree by construction; C runs A's float stage.
 
 // The lane-major state operands of a block (tile_compare_lanes.cu gives
 // their layouts), element e of lane b at [e * n + b]: the opsin tiles,
@@ -425,8 +480,8 @@ struct State {
 // evaluates one candidate at a time; MINB: the CTAs per SM asked of ptxas
 // (__launch_bounds__), which caps the registers at 64; IBC: IDCT scratch
 // ints; FZ0..FZ2: rows of the frozen int operands (B', A': chroma [2][64];
-// B'' and A'': nu, nv [10][10], y16 [16][16]); pixel: the mode's pixel
-// stage, given the frozen ints fz in shared memory.
+// B'' and A'': nu, nv [10][10], y16 [16][16]; C: sy, sx [8][8]); pixel:
+// the mode's pixel stage, given the frozen ints fz in shared memory.
 struct Team444 {
   static constexpr int SUBS = 1, MINB = 16, IBC = 384;
   static constexpr int FZ0 = 0, FZ1 = 0, FZ2 = 0;
@@ -436,6 +491,19 @@ struct Team444 {
                                                int xmax, const float* T,
                                                const Rows& R, int tid, bool) {
     pixel_444_team(c, zero, ib, LIN, ymax, xmax, T, R, tid);
+  }
+};
+// Kernel C: Team444 with the edge replication as selection contractions
+// (its clamps stay 7 and unused).
+struct Team444Sel {
+  static constexpr int SUBS = 1, MINB = 16, IBC = 384;
+  static constexpr int FZ0 = 64, FZ1 = 64, FZ2 = 0;
+  static __device__ __forceinline__ void pixel(const int* c, int zero,
+                                               int* ib, float* LIN,
+                                               const int* fz, int, int,
+                                               const float* T,
+                                               const Rows& R, int tid, bool) {
+    pixel_444_sel_team(c, zero, ib, LIN, fz, fz + 64, T, R, tid);
   }
 };
 struct Team420y {
@@ -515,7 +583,8 @@ __device__ __forceinline__ void load_state(const State& s,
 // shared memory with slot `zero` zeroed (-1: none) -> the mode's pixel
 // stage -> one float stage per unit. B, B', A, A': the block's error; B''
 // and A'': the max over the valid sub-blocks, starting from 0, in sub-block
-// order. Every thread returns the same value. Eleven barriers.
+// order. Every thread returns the same value. Eleven barriers (C:
+// thirteen).
 template <class M>
 __device__ __forceinline__ float eval_team(const int* c, int zero, float* sf,
                                            int* si, const Rows& R, int tid) {

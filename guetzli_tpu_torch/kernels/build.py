@@ -22,8 +22,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-# Library name -> its source file; compare_block.cuh is included by all,
-# compare_team.cuh by zeroing_loop.cu and tile_compare_lanes.cu.
+# Library name -> its source file; every source includes both headers.
 SOURCES = {
     "tile_compare_lanes": "tile_compare_lanes.cu",
     "zeroing_loop": "zeroing_loop.cu",
@@ -67,6 +66,8 @@ SIGNATURES = {
     "zeroing_loop_geometry": ("zeroing_loop", "gt_zeroing_loop_geometry",
                               [_I, _P, _P, _P]),
     "tile_compare": ("tile_compare", "gt_tile_compare", [_P] * 7 + [_I, _P]),
+    "tile_compare_geometry": ("tile_compare", "gt_tile_compare_geometry",
+                              [_I, _P, _P, _P]),
 }
 
 _loaded = {}

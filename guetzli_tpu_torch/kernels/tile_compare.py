@@ -3,12 +3,13 @@ edge replication as per-block 0/1 selection contractions.
 
 Port of guetzli_tpu/kernels/tile_compare.py (_tile_compare_pallas, body
 _kernel, helper _selection_matrices). The CUDA kernel is
-csrc/tile_compare.cu (one thread per block; the IDCT, the color transform
-and the float stage are compare_block.cuh's, which kernel A's team
-evaluation in compare_team.cuh splits over 64 threads);
-``tile_compare_plain`` below is its plain PyTorch version. For one-hot
-selection matrices the contraction equals the clamp gather of kernel A in
-int32, so C equals A bit for bit on the same blocks.
+csrc/tile_compare.cu, a team compare like kernel A: one CTA of 64 threads
+per block loads the block's contiguous operands into shared memory and
+runs the evaluation of csrc/compare_team.cuh, whose pixel stage for C
+contracts with the selection matrices. ``tile_compare_plain`` below is its
+plain PyTorch version. For one-hot selection matrices the contraction
+equals the clamp gather of kernel A in int32, so C equals A bit for bit on
+the same blocks.
 
 Two users: ``--checkcuda`` (checkcl.run_checkcl) and the opt-in zeroing
 mode "444p" (GUETZLI_TPU_PALLAS=1; search/zeroing.py runs the staged
@@ -21,7 +22,8 @@ tensors it launches the kernel or raises; it never falls back.
 import torch
 
 from guetzli_tpu_torch.kernels import build
-from guetzli_tpu_torch.kernels.tile_compare_lanes import check, table_buffer
+from guetzli_tpu_torch.kernels.tile_compare_lanes import (check, geometry,
+                                                          table_buffer)
 from guetzli_tpu_torch.ops import tiles_lanes as tl
 
 # Kernel launches since the last reset (a caller may zero it).
@@ -102,6 +104,12 @@ def tile_compare(cand, xyb0_tiles, scales, sy, sx):
         raise RuntimeError("%s launch failed: CUDA error %d" % (ENTRY, rc))
     launches += 1
     return out
+
+
+def team_geometry(device):
+    """Kernel C's launch geometry on `device` (see
+    tile_compare_lanes.geometry)."""
+    return geometry("tile_compare_geometry", 0, device)
 
 
 # -- the staged greedy loop's layout (mode "444p") ---------------------------

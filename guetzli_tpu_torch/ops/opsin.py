@@ -6,7 +6,7 @@ rational-polynomial gamma, apply the sensitivity to the absorbance of the
 sharp image, and mix into the XYB opponent space.
 
 The 3x3 channel mixes are written as fixed-order multiply-adds, the same
-order as the per-block kernels (csrc/compare_block.cuh) use.
+order as the per-block kernels (csrc/compare_team.cuh) use.
 """
 
 import numpy as np

@@ -1,5 +1,5 @@
 """Lane-major (tiles-last) per-block compare: the plain PyTorch version of
-the CUDA block compare (csrc/compare_block.cuh).
+the CUDA block compare (csrc/compare_team.cuh).
 
 Blocks are the last axis: candidates [3, 8, 8, N], original opsin tiles
 [3, 8, 8, N], scales [3, N], edge clamps [N]. The chain is CompareBlock

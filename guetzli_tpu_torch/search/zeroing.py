@@ -152,7 +152,7 @@ def greedy_rails(blocks, orig_blocks, limit, aux, comp_mask, device,
 def check_final_errors(coeffs_t, out_idx, out_err, aux_lanes, mode="444"):
     """Re-evaluate each block with all its zeroed slots applied, in one
     launch of the mode's compare kernel (A, A', A'' or C), and require the
-    loop's last error bit for bit (the kernels share compare_block.cuh).
+    loop's last error bit for bit (the kernels share compare_team.cuh).
     One evaluation per block against the loop's ~3 per step: a fault in
     the greedy loop surfaces here as an error instead of a wrong JPEG."""
     n = coeffs_t.shape[1]

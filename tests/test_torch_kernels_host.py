@@ -11,8 +11,8 @@ tensors. The shim defines the keywords away and rewrites each launch
 CTAs one after another, each CTA's threads as fibers that run
 concurrently between barriers: ``__syncthreads()`` returns once every
 thread of the CTA has reached it, and a barrier that some threads skip
-fails the launch. The team kernels B, B', B'', A, A' and A'' (one CTA
-per block or macroblock, their state in shared memory) rely on that.
+fails the launch. The team kernels B, B', B'', A, A', A'' and C (one
+CTA per block or macroblock, their state in shared memory) rely on that.
 
 With -ffp-contract=off (the card's build uses --fmad=false) and IEEE
 division and sqrt on both sides, the host-built kernels equal the plain
@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from tests.conftest import FIXTURES
+from tests.torch_selection import KINDS, selection_matrices
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 from guetzli_tpu_torch import consts
@@ -323,6 +324,31 @@ def test_host_built_tile_compare_equals_plain(host_libs, states):
     assert bool(torch.isfinite(out).all()) and float(out.max()) > 0
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_host_built_tile_compare_general_selection(host_libs, states, kind):
+    """Kernel C on every block of bees_d.jpg's 4:4:4 pass with 0/1
+    selection matrices that no edge clamp gives (all-zero rows, rows with
+    two ones, permutations; tests/torch_selection.py): equal to its plain
+    version bit for bit, as the JAX kernel contracts any int32 matrix."""
+    blocks, aux, _mask = states["444"]
+    x0, sc, _ysel, _xsel = aux
+    n = len(blocks)
+    sy, sx = (torch.as_tensor(m) for m in selection_matrices(n, kind, 7))
+    args = (torch.as_tensor(blocks), x0.contiguous(), sc.contiguous(), sy,
+            sx)
+    tab = tables.build(CPU)
+    out = torch.empty(n)
+    rc = _entry(host_libs, kc.ENTRY)(
+        *[a.data_ptr() for a in args], tab.data_ptr(), out.data_ptr(), n,
+        None)
+    assert rc == 0
+    assert torch.equal(out, kc.tile_compare_plain(*args))
+    assert bool(torch.isfinite(out).all())
+    # The rows change the pixels: C is not A on these blocks.
+    lanes = tl.transpose_aux_444(x0, sc, *aux[2:])
+    assert not torch.equal(out, tl.compare_blocks_lanes444(args[0], *lanes))
+
+
 _TEAM_CASES = [(m, la, e) for m in ("444", "420y", "420c")
                for la in (1, 2, 3, 4) for e in (False, True)]
 # Per mode: the error limit, and for the 8x8 modes the longest loops kept
@@ -447,25 +473,30 @@ def test_host_built_team_compare(host_libs, states, mode):
 
 def test_host_team_geometry(host_libs):
     """The geometry entry points of the team kernels: one unit of 64
-    threads per 8x8 block (B, B', A and A': one, B'' and A'': four), the
+    threads per 8x8 block (B, B', A, A' and C: one, B'' and A'': four), the
     dynamic shared memory of each CTA within the 48 KB a launch may take
-    without asking. A, A' and A'' take the layouts of B, B' and
-    B''."""
+    without asking. A, A' and A'' take the layouts of B, B' and B''; C
+    takes A's and its two selection matrices, 512 B more."""
     got = []
     for entry, mode in (("zeroing_loop_geometry", 0),
                         ("zeroing_loop_geometry", 2),
                         ("zeroing_loop_geometry", 1),
                         ("tile_compare_lanes_geometry", 0),
                         ("tile_compare_lanes_geometry", 1),
-                        ("tile_compare_lanes_geometry", 2)):
+                        ("tile_compare_lanes_geometry", 2),
+                        ("tile_compare_geometry", 0)):
         fn = _entry(host_libs, entry)
         vals = [ctypes.c_int(-1) for _ in range(3)]
         assert fn(mode, *[ctypes.byref(v) for v in vals]) == 0
         got.append([v.value for v in vals])
-    assert [g[0] for g in got] == [64, 64, 256, 256, 64, 64]
+    assert [g[0] for g in got] == [64, 64, 256, 256, 64, 64, 64]
     assert 0 < got[1][1] < got[0][1] < got[2][1] <= 48 * 1024
-    assert got[3:] == [got[2], got[0], got[1]]
+    assert got[3:6] == [got[2], got[0], got[1]]
+    assert got[6][1] == got[4][1] + 512 <= 48 * 1024
     assert all(g[2] == 1 for g in got)
     bad = ctypes.c_int(0)
-    assert _entry(host_libs, "tile_compare_lanes_geometry")(
-        3, ctypes.byref(bad), ctypes.byref(bad), ctypes.byref(bad)) != 0
+    for entry, mode in (("tile_compare_lanes_geometry", 3),
+                        ("tile_compare_geometry", 1)):
+        assert _entry(host_libs, entry)(
+            mode, ctypes.byref(bad), ctypes.byref(bad),
+            ctypes.byref(bad)) != 0

@@ -32,6 +32,7 @@ import torch
 import jax.numpy as jnp
 
 from tests.conftest import FIXTURES
+from tests.torch_selection import selection_matrices
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 import chip_smoke
@@ -259,16 +260,21 @@ def jax_kernel_c():
     x0, sc, ysel, xsel = (np.array(a) for a in comp.block_state(1, 1))
     cand = np.ascontiguousarray(np.transpose(coeffs, (1, 0, 2)))
     sy, sx = jtc._selection_matrices(ysel, xsel)
-    nb = cand.shape[0]
+    return (cand, x0, sc, sy, sx, ysel, xsel), _jax_c(cand, x0, sc, sy, sx)
+
+
+def _jax_c(*args):
+    """JAX's kernel C in interpret mode on the blocks of `args` (cand, x0,
+    sc, sy, sx), zero-padded to its tile."""
+    nb = args[0].shape[0]
     n = -(-nb // jtc.TILE) * jtc.TILE
 
     def pad(a):
         return jnp.asarray(np.concatenate(
             [a, np.zeros((n - nb,) + a.shape[1:], a.dtype)]))
 
-    got = np.asarray(jtc.tile_compare_pallas(
-        pad(cand), pad(x0), pad(sc), pad(sy), pad(sx), interpret=True))
-    return (cand, x0, sc, sy, sx, ysel, xsel), got[:nb]
+    got = jtc.tile_compare_pallas(*[pad(a) for a in args], interpret=True)
+    return np.asarray(got)[:nb]
 
 
 def test_plain_c_vs_jax_interpret(jax_kernel_c):
@@ -283,6 +289,19 @@ def test_plain_c_vs_jax_interpret(jax_kernel_c):
     a = tl.compare_blocks_lanes444(
         T(cand), *tl.transpose_aux_444(T(x0), T(sc), T(ysel), T(xsel)))
     assert torch.equal(got, a)
+
+
+def test_plain_c_vs_jax_interpret_general_selection(jax_kernel_c):
+    """Kernel C's plain version against JAX's kernel C on the same blocks
+    with 0/1 selection matrices that no edge clamp gives (all-zero rows,
+    rows with two ones, permutations; tests/torch_selection.py), within
+    the band of test_plain_c_vs_jax_interpret."""
+    (cand, x0, sc, _sy, _sx, _ysel, _xsel), _want = jax_kernel_c
+    sy, sx = selection_matrices(len(cand), "mixed", 11)
+    want = _jax_c(cand, x0, sc, sy, sx)
+    got = kc.tile_compare(T(cand), T(x0), T(sc), T(sy), T(sx))
+    assert np.isfinite(want).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)
 
 
 def test_tile_compare_wrapper_checks():
