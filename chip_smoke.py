@@ -40,7 +40,15 @@ counts set to 0 just before it and read just after:
     counts tests/test_torch_tooling.py pins on the CPU), and the
     butteraugli CLI on bees96x64 against the reference's q95 JPEG;
   * GUETZLI_TPU_PALLAS=1 encodes of the two PNGs (mode "444p": C, not B),
-    which must give the default path's bytes.
+    which must give the default path's bytes;
+  * the corpus path: ``corpus_cli.main`` with 6 threads over six images
+    (three PNGs, three 4:2:0 JPEGs), each output equal to its serial
+    encode_bytes bytes and within 2% of golden, with exactly one launch
+    of each of B, B', B'', A, A' and A'' for the whole corpus (one per
+    masking pass), and the lockstep encoder on one thread giving the same
+    bytes. It logs the corpus wall, images/min, MPix/s, the sum of the
+    serial walls, the phase walls, the CTAs of each launch, and the peak
+    device memory and RSS.
 
 Every phase that fails makes the script exit nonzero. The last two lines
 of standard output are the kernels' JSON record and {"ok": true,
@@ -76,6 +84,16 @@ E2E = [("tests/fixtures/bees96x64.png", 2364),
 BAND = 0.02
 QUALITY = 95
 MODES = ("444", "420y", "420c")
+
+# The corpus phase's inputs and their golden sizes at q95
+# (tests/golden_corpus.txt), and its threads.
+CORPUS = [("tests/corpus/photo_mosaic1.png", 393811),
+          ("tests/corpus/photo_mosaic2.png", 329315),
+          ("tests/corpus/photo_hopper.png", 69027),
+          ("tests/corpus/photo_mosaic1-420.jpg", 348714),
+          ("tests/corpus/photo_hopper-420.jpg", 62786),
+          ("tests/corpus/bees_d-420.jpg", 1681)]
+CORPUS_THREADS = 6
 
 # --checkcuda's per-stage mismatch counts on bees_d-420.jpg, as
 # tests/test_torch_tooling.py pins them for the port on the CPU (JAX's
@@ -599,26 +617,32 @@ def _check_golden(path, out, golden):
                            % (path, len(out), golden))
 
 
+def _serial_encode(path, dev, stats=None):
+    """api.encode_bytes of a file on the card at QUALITY: (bytes, wall
+    seconds, ending in a sync)."""
+    from guetzli_tpu_torch import api
+    data = (REPO / path).read_bytes()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = api.encode_bytes(data, quality=QUALITY, stats=stats, device=dev)
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
 def phase_e2e(dev):
     """The main paths: api.encode_bytes on the card, PNG and JPEG in.
-    Returns (launches, path -> output bytes)."""
-    from guetzli_tpu_torch import api
+    Returns (launches, path -> output bytes, path -> wall seconds)."""
     from guetzli_tpu_torch.codec import reader
     from guetzli_tpu_torch.kernels import tile_compare as kc
     from guetzli_tpu_torch.kernels import zeroing_loop as zl
     from guetzli_tpu_torch.search.processor import ProcessStats
     _reset_launches()
-    outputs = {}
+    outputs, walls = {}, {}
     for path, golden in E2E:
-        data = (REPO / path).read_bytes()
         stats = ProcessStats()
         before = _launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        out = api.encode_bytes(data, quality=QUALITY, stats=stats,
-                               device=dev)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+        out, wall = _serial_encode(path, dev, stats)
+        walls[path] = wall
         c = stats.counters
         now = _launch_counts()
         delta = {k: now[k] - before[k] for k in now}
@@ -650,7 +674,7 @@ def phase_e2e(dev):
     if min(launches.values()) == 0:
         raise RuntimeError("a kernel was not launched on the main paths: %s"
                            % launches)
-    return launches, outputs
+    return launches, outputs, walls
 
 
 _REPORT = re.compile(r"^checkcl (.+): (\d+)/(\d+) mismatches", re.M)
@@ -761,6 +785,128 @@ def phase_444p_e2e(dev, default_out):
     return c_launches
 
 
+def _count_ctas(ctas):
+    """Wraps the greedy and compare kernels' wrappers as the zeroing call
+    reaches them, recording (entry, CTAs, CUDA events around the call) of
+    each call (one CTA per block or macroblock, one per lane for a
+    compare); returns an undo."""
+    from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
+    from guetzli_tpu_torch.kernels import zeroing_loop as zl
+    from guetzli_tpu_torch.search import zeroing
+    loop, compare = zl.zeroing_loop, zeroing.tile_compare_lanes
+
+    def timed(fn, name, n, *a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn(*a, **k)
+        ev[1].record()
+        ctas.append((name, n, ev))
+        return out
+
+    def loop_spy(coeffs_t, *a, mode="444", **k):
+        return timed(loop, zl.ENTRY[mode], coeffs_t.shape[1], coeffs_t, *a,
+                     mode=mode, **k)
+
+    def compare_spy(ct, *a, mode="444", **k):
+        return timed(compare, ka.ENTRY[mode], ct.shape[-1], ct, *a,
+                     mode=mode, **k)
+    zl.zeroing_loop, zeroing.tile_compare_lanes = loop_spy, compare_spy
+
+    def undo():
+        zl.zeroing_loop, zeroing.tile_compare_lanes = loop, compare
+    return undo
+
+
+def phase_corpus(dev, outputs, walls):
+    """The corpus path on the card: corpus_cli.main over CORPUS with
+    CORPUS_THREADS threads, against each image's serial bytes (phase_e2e's
+    where it encoded the image) and golden size; then the lockstep encoder
+    on one thread. Returns the corpus run's launches."""
+    import resource
+    from guetzli_tpu_torch import corpus_cli
+    from guetzli_tpu_torch.api import _peek_geometry
+    from guetzli_tpu_torch.kernels import tile_compare as kc
+    from guetzli_tpu_torch.parallel.lockstep import encode_corpus_lockstep
+    for path, _golden in CORPUS:
+        if path not in outputs:
+            outputs[path], walls[path] = _serial_encode(path, dev)
+            log("%s q%d serial: %.2f s, %d bytes"
+                % (path, QUALITY, walls[path], len(outputs[path])))
+    serial_sum = sum(walls[p] for p, _g in CORPUS)
+    mpix = sum(int(np.prod(_peek_geometry((REPO / p).read_bytes())))
+               for p, _g in CORPUS) / 1e6
+    tmp = tempfile.TemporaryDirectory()
+    out_dir = pathlib.Path(tmp.name)
+    ctas = []
+    undo = _count_ctas(ctas)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = corpus_cli.main(
+                ["--threads", str(CORPUS_THREADS), "--quality", str(QUALITY),
+                 "--verbose", "--out", str(out_dir)]
+                + [str(REPO / p) for p, _g in CORPUS])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        undo()
+    launches = _launch_counts()
+    m = re.search(r"^phase walls: (.*)$", err.getvalue(), re.M)
+    phase = json.loads(m.group(1)) if m else {}
+    log("corpus_cli, %d images (%.3f MPix), %d threads, q%d: rc %d, %.2f s "
+        "(%.2f images/min, %.4f MPix/s); the serial encodes' walls sum to "
+        "%.2f s (%.2fx); phase walls %s; CLI line %s"
+        % (len(CORPUS), mpix, CORPUS_THREADS, QUALITY, rc, wall,
+           60.0 * len(CORPUS) / wall, mpix / wall, serial_sum,
+           serial_sum / wall,
+           ", ".join("%s %.2f s" % kv for kv in sorted(phase.items())),
+           out.getvalue().strip()))
+    log("corpus launches (CTAs, event window of the wrapper): %s; launches "
+        "%s; peak device memory %.1f MiB (torch.cuda.max_memory_allocated), "
+        "process peak RSS %.1f MiB"
+        % (", ".join("%s %d CTAs %.3f ms" % (n, c, a.elapsed_time(b))
+                     for n, c, (a, b) in ctas),
+           ", ".join("%s %d" % kv for kv in launches.items()),
+           torch.cuda.max_memory_allocated(dev) / 2**20,
+           resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024))
+    if rc != 0:
+        raise RuntimeError("corpus_cli exited %d:\n%s" % (rc, err.getvalue()))
+    c_launches = launches.pop(kc.ENTRY)
+    if c_launches or set(launches.values()) != {1}:
+        raise RuntimeError("the corpus run must launch each of B, B', B'', "
+                           "A, A', A'' once and C never: %s" % launches)
+    for path, golden in CORPUS:
+        got = (out_dir / (pathlib.Path(path).stem + ".jpg")).read_bytes()
+        log("  %s: %d bytes (serial %d, golden %d, %+.2f%%)"
+            % (path, len(got), len(outputs[path]), golden,
+               100.0 * (len(got) - golden) / golden))
+        if got != outputs[path]:
+            raise RuntimeError("%s: the corpus gives other bytes than the "
+                               "serial encode" % path)
+        _check_golden(path, got, golden)
+    tmp.cleanup()
+    walls1 = {}
+    items = [(p, (REPO / p).read_bytes()) for p, _g in CORPUS]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    one = encode_corpus_lockstep(items, quality=QUALITY, threads=1,
+                                 phase_walls=walls1, device=dev)
+    torch.cuda.synchronize()
+    log("encode_corpus_lockstep, 1 thread: %.2f s, phase walls %s, the "
+        "same bytes as 6 threads: %s"
+        % (time.time() - t0,
+           ", ".join("%s %.2f s" % kv for kv in sorted(walls1.items())),
+           all(d == outputs[p] for p, d in one)))
+    if any(d != outputs[p] for p, d in one):
+        raise RuntimeError("1 and %d threads give other bytes"
+                           % CORPUS_THREADS)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
@@ -778,13 +924,15 @@ def main():
             if mode == "444":
                 records.append(phase_tile_compare(state, dev))
                 phase_greedy_444p(state, dev)
-    launches, outputs = phase_e2e(dev)
+    launches, outputs, walls = phase_e2e(dev)
     # Kernel C's paths: --checkcuda and the opt-in 444p search.
     launches["tile_compare"] = (phase_checkcuda(dev)
                                 + phase_444p_e2e(dev, outputs))
     phase_butteraugli(dev)
+    corpus_launches = phase_corpus(dev, outputs, walls)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
+        rec["corpus_launches"] = corpus_launches.get(rec["name"], 0)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,17 @@
-"""Library entry point: encode one PNG or JPEG to a perceptual JPEG.
+"""Library entry points: encode one PNG or JPEG to a perceptual JPEG
+(encode_bytes), or a corpus of them one image at a time (encode_corpus).
 
-Port of guetzli_tpu/parallel/api.py::encode_bytes.
+Port of guetzli_tpu/parallel/api.py. The corpus path that runs the
+search of every image in phase is parallel/lockstep.py.
 """
 
-from guetzli_tpu_torch import consts
+import dataclasses
+import struct
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+from guetzli_tpu_torch import consts, runtime
 from guetzli_tpu_torch.device import resolve
 from guetzli_tpu_torch.io.png import read_png
 from guetzli_tpu_torch.search.processor import (Params, ProcessStats,
@@ -37,3 +45,69 @@ def encode_bytes(data: bytes, quality: float = 95, params: Params = None,
         return out
     rgb, w, h = read_png(data)
     return process_rgb(params, rgb, w, h, stats, dev)
+
+
+def _peek_geometry(data: bytes):
+    """(w, h) from the JPEG's SOF or the PNG's IHDR, or None."""
+    if is_jpeg(data):
+        from guetzli_tpu_torch.codec.reader import peek_dimensions
+        return peek_dimensions(data)
+    if data[:8] == b"\x89PNG\r\n\x1a\n" and data[12:16] == b"IHDR":
+        return struct.unpack(">II", data[16:24])
+    return None
+
+
+def encode_corpus(inputs, quality: float = 95, params: Params = None,
+                  verbose: bool = False, threads: int = 1, device=None):
+    """Encode a corpus of images one at a time (the serial analog of the
+    reference's one process per image).
+
+    inputs: (name, bytes) pairs; `threads` concurrent encodes (each
+    image's host work hides another's device round trips). Images are
+    ordered by geometry, and with threads > 1 the first image of each
+    geometry is encoded alone before the others start. A failed image is
+    recorded as None after a message on stderr and the corpus goes on,
+    unless the error is sticky (runtime.is_sticky): the device is lost
+    and the error propagates.
+    Runs on the CUDA device unless `device` says otherwise ("cpu").
+    Returns [(name, jpeg_bytes or None, seconds)] in input order."""
+    dev = resolve(device)
+    items = list(inputs)
+    geoms = [_peek_geometry(d) for _, d in items]
+    order = sorted(range(len(items)),
+                   key=lambda i: (geoms[i] is None, geoms[i] or (0, 0),
+                                  len(items[i][1])))
+    results = [None] * len(items)
+
+    def encode_one(i):
+        name, data = items[i]
+        t0 = time.time()
+        try:
+            out = encode_bytes(data, quality,
+                               dataclasses.replace(params) if params
+                               else None, device=dev)
+        except Exception as e:
+            if runtime.is_sticky(e):
+                raise
+            sys.stderr.write("%s: %s\n" % (name, e))
+            out = None
+        dt = time.time() - t0
+        if verbose:
+            sys.stderr.write("%s: %d bytes in %.1fs\n"
+                             % (name, len(out) if out else 0, dt))
+        results[i] = (name, out, dt)
+
+    if threads <= 1:
+        for i in order:
+            encode_one(i)
+        return results
+    seen, rest = set(), []
+    for i in order:
+        if geoms[i] in seen:
+            rest.append(i)
+        else:
+            seen.add(geoms[i])
+            encode_one(i)
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        list(pool.map(encode_one, rest))
+    return results

@@ -165,7 +165,16 @@ def peek_dimensions(data: bytes):
 
 
 def read_jpeg(data: bytes) -> jd.JpegData:
-    """ReadJpeg(..., JPEG_READ_ALL) (jpeg_data_reader.cc:931-1080)."""
+    """ReadJpeg(..., JPEG_READ_ALL) (jpeg_data_reader.cc:931-1080). Raises
+    JpegError for data it cannot read, a truncated marker segment among
+    them (the JAX package's reader raises IndexError there)."""
+    try:
+        return _read_jpeg(data)
+    except IndexError:
+        raise JpegError("truncated JPEG data") from None
+
+
+def _read_jpeg(data: bytes) -> jd.JpegData:
     data = bytes(data)
     n = len(data)
     if n < 2 or data[0] != 0xFF or data[1] != 0xD8:

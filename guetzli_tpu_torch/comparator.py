@@ -123,13 +123,7 @@ class Comparator:
         self.device = torch.device(device)
         self.rgb_orig = np.asarray(rgb, dtype=np.uint8).reshape(
             height, width, 3)
-        if xyb0 is None:
-            lut = consts.SRGB_TO_LINEAR.astype(np.float32)
-            lin0 = torch.as_tensor(
-                np.ascontiguousarray(lut[self.rgb_orig].transpose(2, 0, 1)),
-                device=self.device)
-            xyb0 = opsin_dynamics_image(lin0)
-        self.xyb0 = xyb0
+        self.xyb0 = self._original_opsin() if xyb0 is None else xyb0
         self.distance = 0.0
         self.distmap = None
         # Block-comparison state (built by start_block_comparisons).
@@ -142,6 +136,24 @@ class Comparator:
 
     def _up(self, a):
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    def _original_opsin(self):
+        lut = consts.SRGB_TO_LINEAR.astype(np.float32)
+        lin0 = torch.as_tensor(
+            np.ascontiguousarray(lut[self.rgb_orig].transpose(2, 0, 1)),
+            device=self.device)
+        return opsin_dynamics_image(lin0)
+
+    def recover_device_state(self):
+        """Rebuild the device state after a recoverable error (runtime.py):
+        recompute the original's opsin on the same device and drop the
+        last distmap, the mask and the block state, which the next compare
+        or start_block_comparisons rebuilds. The search state lives on the
+        host, so a replayed dispatch gives the same result."""
+        self.xyb0 = self._original_opsin()
+        self.distmap = None
+        self._mask_xyz = None
+        self._block_state = {}
 
     # -- full-image comparison ------------------------------------------
 
@@ -304,17 +316,26 @@ class Comparator:
     def dispatch_compare_with_weights(self, img, direction, target_mul,
                                       factor_x, factor_y):
         """Queue the compare + next-iteration block weights; returns a
-        handle for fetch_compare()."""
+        handle for fetch_compare() or fetch_compare_many(): (score, dmap,
+        w4, args), args being this call's arguments for replay()."""
         sizex, sizey, gbw, gbh = self._grid_dims(factor_x, factor_y)
         score, dmap = self.dispatch_compare(img)
         w4 = _weights_all_radii_impl(
             dmap, _F32(self.target_distance * target_mul), sizex, sizey,
             gbw, gbh, direction > 0)
-        return score, dmap, w4
+        return score, dmap, w4, (img, direction, target_mul, factor_x,
+                                 factor_y)
+
+    def replay(self, handle):
+        """Queue a handle's compare again. The image is the one the handle
+        was dispatched for: until the handle is fetched, its owner does
+        not change its coefficients, so the replay gives the same
+        result."""
+        return self.dispatch_compare_with_weights(*handle[3])
 
     def fetch_compare(self, handle):
         """Complete a dispatch_compare_with_weights: (distance, [4, NB])."""
-        score, dmap, w4 = handle
+        score, dmap, w4, _args = handle
         self.distance = float(score)
         self.distmap = dmap
         return self.distance, w4.cpu().numpy()
@@ -363,3 +384,22 @@ class Comparator:
                              | p[1:-1, 0:-2] | p[1:-1, 1:-1] | p[1:-1, 2:]
                              | p[2:, 0:-2] | p[2:, 1:-1] | p[2:, 2:])
         return weight.reshape(-1)
+
+
+def fetch_compare_many(comps, handles):
+    """Complete many dispatch_compare_with_weights handles (one per
+    comparator in `comps`) with ONE device-to-host copy: every score and
+    flattened w4 concatenated. Leaves each comparator as fetch_compare
+    would (distance, distmap) and returns the same [(distance, w4)]."""
+    if not handles:
+        return []
+    flat = torch.cat([torch.cat([h[0].reshape(1), h[2].reshape(-1)])
+                      for h in handles]).cpu().numpy()
+    out, pos = [], 0
+    for c, (_score, dmap, w4, _args) in zip(comps, handles):
+        n = w4.numel()
+        c.distance = float(flat[pos])
+        c.distmap = dmap
+        out.append((c.distance, flat[pos + 1:pos + 1 + n].reshape(w4.shape)))
+        pos += 1 + n
+    return out

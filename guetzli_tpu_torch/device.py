@@ -29,4 +29,8 @@ def resolve(device=None) -> torch.device:
         raise ValueError("unsupported device %r" % (device,))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's autotuner may pick another convolution algorithm per call,
+    # and with it other bits: the corpus's threads must see the serial
+    # encoder's choices.
+    torch.backends.cudnn.benchmark = False
     return dev

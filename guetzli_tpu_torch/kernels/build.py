@@ -7,7 +7,8 @@ process per source started at once. A library's file name carries a hash
 of its sources and flags, so an edited source is rebuilt, never reused.
 
 Nothing here runs at import: the CPU tests import the wrappers on a
-machine without nvcc.
+machine without nvcc. ``lock`` makes the lazy build and the wrappers'
+launch counts safe under the corpus encoders' threads.
 """
 
 import ctypes
@@ -16,6 +17,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
@@ -71,6 +73,7 @@ SIGNATURES = {
 }
 
 _loaded = {}
+lock = threading.Lock()
 # name -> {"seconds": build wall time, "ptxas": compiler resource report}
 build_log = {}
 
@@ -127,12 +130,13 @@ def build_all(names=None):
 def load(name):
     """The ctypes handle of entry point `name` (SIGNATURES; builds all
     missing libraries first)."""
-    if name not in _loaded:
-        build_all()
-        libname, fname, argtypes = SIGNATURES[name]
-        lib = ctypes.CDLL(str(_lib_path(libname)))
-        fn = getattr(lib, fname)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _loaded[name] = fn
-    return _loaded[name]
+    with lock:
+        if name not in _loaded:
+            build_all()
+            libname, fname, argtypes = SIGNATURES[name]
+            lib = ctypes.CDLL(str(_lib_path(libname)))
+            fn = getattr(lib, fname)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = fn
+        return _loaded[name]

@@ -102,7 +102,8 @@ def tile_compare(cand, xyb0_tiles, scales, sy, sx):
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("%s launch failed: CUDA error %d" % (ENTRY, rc))
-    launches += 1
+    with build.lock:
+        launches += 1
     return out
 
 

@@ -114,7 +114,8 @@ def tile_compare_lanes(cand_t, *aux, mode="444"):
     if rc != 0:
         raise RuntimeError("%s launch failed: CUDA error %d"
                            % (ENTRY[mode], rc))
-    launches[mode] += 1
+    with build.lock:
+        launches[mode] += 1
     return out
 
 

@@ -141,7 +141,8 @@ def zeroing_loop(coeffs_t, order_t, nrem, lim, aux, mode="444",
     if rc != 0:
         raise RuntimeError("%s launch failed: CUDA error %d"
                            % (ENTRY[mode], rc))
-    launches[mode] += 1
+    with build.lock:
+        launches[mode] += 1
     return out_idx, out_err
 
 

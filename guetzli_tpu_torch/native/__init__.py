@@ -10,6 +10,7 @@ raises, see io/png.py).
 import ctypes
 import pathlib
 import subprocess
+import threading
 
 _DIR = pathlib.Path(__file__).parent
 _SRCS = [_DIR / "src" / "native.cc", _DIR / "src" / "png_decode.cc"]
@@ -18,6 +19,7 @@ _LIB = _DIR / "_cache" / "libguetzli_native.so"
 _lib = None
 _tried = False
 _build_error = None
+_lock = threading.Lock()
 
 
 def _build():
@@ -43,6 +45,11 @@ def _build():
 
 def get_lib():
     """The ctypes library handle, or None if it cannot be built."""
+    with _lock:
+        return _get_lib()
+
+
+def _get_lib():
     global _lib, _tried
     if _tried:
         return _lib

@@ -25,7 +25,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from guetzli_tpu_torch import config, consts, native
+from guetzli_tpu_torch import config, consts, native, runtime
 from guetzli_tpu_torch.codec import histograms as hg
 from guetzli_tpu_torch.codec import jpeg_data as jd
 from guetzli_tpu_torch.codec import writer as jwriter
@@ -218,19 +218,50 @@ class Processor:
             self.stats.log(" (*)")
         self.stats.log("\n")
 
+    def _recoverable(self, dispatch_fn, fetch_fn, pending=None):
+        """fetch_fn(pending), dispatching first when `pending` is None, with
+        recovery from a recoverable device error (runtime.py): free the
+        allocator's cache, rebuild the comparator's device state and replay
+        the deterministic dispatch on the same device, up to
+        runtime.ATTEMPTS tries. Any other error propagates."""
+        for attempt in range(runtime.ATTEMPTS):
+            try:
+                if pending is None:
+                    pending = dispatch_fn()
+                return fetch_fn(pending)
+            except runtime.RECOVERABLE:
+                if attempt == runtime.ATTEMPTS - 1:
+                    raise
+                runtime.release_memory(self.comparator.device, "a compare")
+                self.comparator.recover_device_state()
+                pending = None
+
     def _compare(self, img: st.CoeffImage):
-        d = self.comparator.compare_img(img)
+        d = self._recoverable(
+            lambda: self.comparator.dispatch_compare(img),
+            self.comparator.fetch_compare_plain)
         self.stats.log(" BA[100.00%%] D[%6.4f]", d)
         return d
 
     # -- quant matrix selection (processor.cc:310-372) ----------------
 
-    def try_quant_matrix(self, jpg_in, q, img, target_mul):
-        """TryQuantMatrix (processor.cc:310-338): requantize, compare,
-        serialize, MaybeOutput. Returns (dist_ok, size)."""
+    def _quant_eval_start(self, jpg_in, q):
+        """The first half of TryQuantMatrix (processor.cc:310-338):
+        requantize, queue the trial's compare, serialize the candidate
+        while the device works. No side effect on the search state, so a
+        lockstep corpus starts every image's trial before fetching any.
+        Returns (trial, pending, encoded) for _quant_resolve."""
         trial = st.CoeffImage.from_jpeg(jpg_in)
         trial.apply_global_quantization(q)
+        pending = self.comparator.dispatch_compare(trial)
         encoded = self.output_jpeg(trial.save_to_jpeg_data(jpg_in))
+        return trial, pending, encoded
+
+    def _quant_resolve(self, jpg_in, q, trial, pending, encoded, img,
+                       target_mul):
+        """The second half: fetch the compare (with recovery), log and
+        MaybeOutput, in the reference's program order. Returns (dist_ok,
+        size)."""
         img.comps = trial.comps
         self.stats.inc("iters")
         self.stats.inc("quant_trials")
@@ -240,10 +271,20 @@ class Processor:
         self.stats.log("Iter %2d: %s GQ[%5.2f] Out[%7d]",
                        self.stats.counters["iters"], _frame_type_str(img),
                        quant_matrix_heuristic_score(q), len(encoded))
-        self._compare(img)
+        d = self._recoverable(
+            lambda: self.comparator.dispatch_compare(img),
+            self.comparator.fetch_compare_plain, pending)
+        self.stats.log(" BA[100.00%%] D[%6.4f]", d)
         dist_ok = self.comparator.distance_ok(target_mul)
         self.maybe_output(encoded)
         return dist_ok, len(encoded)
+
+    def try_quant_matrix(self, jpg_in, q, img, target_mul):
+        """TryQuantMatrix (processor.cc:310-338): requantize, compare,
+        serialize, MaybeOutput. Returns (dist_ok, size)."""
+        return self._quant_resolve(jpg_in, q,
+                                   *self._quant_eval_start(jpg_in, q), img,
+                                   target_mul)
 
     def select_quant_matrix(self, jpg_in, downsample, best_q,
                             img: st.CoeffImage):
@@ -357,7 +398,9 @@ class Processor:
             except StopIteration:
                 return
             with self.stats.timed("backend_fetch"):
-                result = self.comparator.fetch_compare(pending)
+                result = self._recoverable(
+                    lambda: self.comparator.replay(pending),
+                    self.comparator.fetch_compare, pending)
 
     def back_end_steps(self, jpg, img: st.CoeffImage, comp_mask,
                        target_mul, stop_early,
@@ -728,8 +771,9 @@ class Processor:
         except Exception as e:   # the reference's resilience model
             # The original/requantized output was emitted before the search
             # started, so a failed search still yields valid output
-            # (processor.cc:965-977). stats.search_error records it.
-            if not self.final.jpeg_data:
+            # (processor.cc:965-977). stats.search_error records it. A
+            # sticky CUDA error has lost the device: it propagates.
+            if not self.final.jpeg_data or runtime.is_sticky(e):
                 raise
             self.stats.search_error = "%s: %s" % (type(e).__name__, e)
             sys.stderr.write(

@@ -144,9 +144,11 @@ def test_device_defaults_to_cuda(monkeypatch, bees_png, tmp_path):
 def test_resolve_disables_tf32(monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
     device.resolve("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cudnn.benchmark is False
 
 
 def test_cli_module_runs(tmp_path):

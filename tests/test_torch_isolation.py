@@ -54,6 +54,22 @@ def test_ast_scan_finds_no_forbidden_import():
     assert not bad, bad
 
 
+def test_ast_scan_covers_the_corpus_modules():
+    """The lockstep encoder, the runtime and the corpus CLI are among the
+    scanned files, and none of them imports jax or the JAX package."""
+    scanned = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"parallel/lockstep.py", "runtime/__init__.py",
+            "corpus_cli.py"} <= scanned
+    for rel in ("parallel/lockstep.py", "runtime/__init__.py",
+                "corpus_cli.py"):
+        tree = ast.parse((PKG / rel).read_text())
+        mods = [n.module for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom)]
+        mods += [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names]
+        assert not [m for m in mods if _forbidden(m or "")], (rel, mods)
+
+
 _CHILD = r"""
 import importlib, pkgutil, sys
 import guetzli_tpu_torch
