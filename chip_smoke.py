@@ -41,14 +41,26 @@ counts set to 0 just before it and read just after:
     butteraugli CLI on bees96x64 against the reference's q95 JPEG;
   * GUETZLI_TPU_PALLAS=1 encodes of the two PNGs (mode "444p": C, not B),
     which must give the default path's bytes;
-  * the corpus path: ``corpus_cli.main`` with 6 threads over six images
-    (three PNGs, three 4:2:0 JPEGs), each output equal to its serial
-    encode_bytes bytes and within 2% of golden, with exactly one launch
-    of each of B, B', B'', A, A' and A'' for the whole corpus (one per
-    masking pass), and the lockstep encoder on one thread giving the same
-    bytes. It logs the corpus wall, images/min, MPix/s, the sum of the
-    serial walls, the phase walls, the CTAs of each launch, and the peak
-    device memory and RSS.
+  * the search route (the JAX package's accelerator route), on
+    photo_mosaic1.png and photo_mosaic1-420.jpg: a quant wave of each size
+    of Comparator.quant_batch_sizes() against as many single compares of
+    the same matrices, bit for bit, with its wall and peak device memory
+    per trial and pixel; the wave at photo_mosaic1 tiled 2x2 (5.24 MPix);
+    a seeded wave of sparse coefficient deltas, whole and in chunks,
+    against a full compare of the same host image (distance and weights
+    bit for bit); then both mosaics encoded with every route knob off,
+    with the auto defaults and with each knob forced on alone, in turns
+    over ROUTE_ROUNDS rounds, each giving the default path's bytes, with
+    the select_quant_matrix, backend_dispatch, backend_fetch and back_end
+    walls and their medians;
+  * the corpus path, with the quant tree: ``corpus_cli.main`` with 6
+    threads over six images (three PNGs, three 4:2:0 JPEGs), each output
+    equal to its serial encode_bytes bytes and within 2% of golden, with
+    exactly one launch of each of B, B', B'', A, A' and A'' for the whole
+    corpus (one per masking pass), and the lockstep encoder on one thread
+    giving the same bytes. It logs the corpus wall, images/min, MPix/s,
+    the sum of the serial walls, the phase walls, the CTAs of each
+    launch, and the peak device memory and RSS.
 
 Every phase that fails makes the script exit nonzero. The last two lines
 of standard output are the kernels' JSON record and {"ok": true,
@@ -94,6 +106,22 @@ CORPUS = [("tests/corpus/photo_mosaic1.png", 393811),
           ("tests/corpus/photo_hopper-420.jpg", 62786),
           ("tests/corpus/bees_d-420.jpg", 1681)]
 CORPUS_THREADS = 6
+
+# The route phase: the JAX package's accelerator search route (quant-tree
+# waves, quant speculation, sparse back-end deltas, the back-end
+# pipeline) on the two mosaics. Each encode runs with every route knob
+# forced off, with the auto defaults (config.CUDA_AUTO), and with one
+# knob forced on, in turns over ROUTE_ROUNDS rounds.
+ROUTE = [("tests/corpus/photo_mosaic1.png", 393811),
+         ("tests/corpus/photo_mosaic1-420.jpg", 348714)]
+ROUTE_KNOBS = ("TREE_QUANT", "SPECULATE", "SPARSE", "PIPELINE")
+ROUTE_CONFIGS = ([("off", dict.fromkeys(ROUTE_KNOBS, "0")), ("auto", {})]
+                 + [(k.lower(), dict(dict.fromkeys(ROUTE_KNOBS, "0"),
+                                     **{k: "1"})) for k in ROUTE_KNOBS])
+ROUTE_ROUNDS = 3
+# Seed and size of the route phase's sparse delta wave.
+SPARSE_SEED = 9
+SPARSE_FLIPS = 20000
 
 # --checkcuda's per-stage mismatch counts on bees_d-420.jpg, as
 # tests/test_torch_tooling.py pins them for the port on the CPU (JAX's
@@ -907,6 +935,248 @@ def phase_corpus(dev, outputs, walls):
     return launches
 
 
+@contextlib.contextmanager
+def _route_env(env):
+    """Set the route knobs' variables as `env` says (unset the others)
+    for the block."""
+    keys = ["GUETZLI_TPU_" + k for k in ROUTE_KNOBS]
+    saved = {k: os.environ.get(k) for k in keys}
+    for k in keys:
+        os.environ.pop(k, None)
+    os.environ.update({"GUETZLI_TPU_" + k: v for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _quant_start(path, dev, tile=1):
+    """A comparator and the quant search's base image for `path` (tiled
+    tile x tile), its downsample flag and its input matrix."""
+    from guetzli_tpu_torch.codec import reader
+    from guetzli_tpu_torch.codec.encoder import encode_rgb_to_jpeg
+    from guetzli_tpu_torch.comparator import Comparator
+    from guetzli_tpu_torch.io.png import read_png
+    from guetzli_tpu_torch.search import state as st
+    from guetzli_tpu_torch.search.processor import (_copy_jpeg,
+                                                    decode_jpeg_to_rgb)
+    data = (REPO / path).read_bytes()
+    if data[:2] == b"\xff\xd8":
+        jpg_in = reader.read_jpeg(data)
+        rgb, w, h = decode_jpeg_to_rgb(jpg_in), jpg_in.width, jpg_in.height
+    else:
+        rgb, w, h = read_png(data)
+        if tile > 1:
+            rgb = np.ascontiguousarray(np.tile(rgb, (tile, tile, 1)))
+            w, h = tile * w, tile * h
+        jpg_in = encode_rgb_to_jpeg(rgb, w, h)
+    comp = Comparator(rgb, w, h, target(), dev)
+    jpg = _copy_jpeg(jpg_in)
+    q_in = st.remove_original_quantization(jpg)
+    return comp, st.CoeffImage.from_jpeg(jpg), jpg_in.is_420(), q_in
+
+
+def _subtree(downsample, q_in, n):
+    """The first n matrices of the quant search's subtree from its start
+    (search/quant_tree.py), depth 4."""
+    from guetzli_tpu_torch.search.processor import QuantMatrixGenerator
+    from guetzli_tpu_torch.search.quant_tree import _enumerate_subtree
+    return _enumerate_subtree(QuantMatrixGenerator(downsample), q_in, True,
+                              4)[:n]
+
+
+def _wave(comp, base, qs):
+    """One wave through dispatch_quant_batch: (scores, wall ms, peak
+    device bytes above the memory allocated before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.time()
+    scores = comp.fetch_quant_scores(comp.dispatch_quant_batch(base, qs))
+    torch.cuda.synchronize()
+    return (scores, 1e3 * (time.time() - t0),
+            torch.cuda.max_memory_allocated() - m0)
+
+
+def route_waves(dev):
+    """Each wave size of quant_batch_sizes() on both mosaics against as
+    many single compares of the same matrices, bit for bit; the wave's
+    wall and peak device memory per trial and pixel. Returns the largest
+    peak per trial and pixel."""
+    worst = 0.0
+    for path, _golden in ROUTE:
+        comp, img, ds, q_in = _quant_start(path, dev)
+        sizes = comp.quant_batch_sizes()
+        qs = _subtree(ds, q_in, max(sizes))
+        if len(qs) < max(sizes):
+            raise RuntimeError("%s: %d subtree matrices" % (path, len(qs)))
+        trials = []
+        for q in qs:
+            t = img.copy()
+            t.apply_global_quantization(q)
+            trials.append(t)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        singles = [comp.compare_img(t) for t in trials]
+        single_ms = 1e3 * (time.time() - t0) / len(trials)
+        base = comp.quant_base_upload(img)
+        npix = comp.width * comp.height
+        for b in sizes:
+            _wave(comp, base, qs[:b])              # warm-up
+            scores, ms, peak = _wave(comp, base, qs[:b])
+            same = [float(scores[i]) == singles[i] for i in range(b)]
+            worst = max(worst, peak / b / npix)
+            log("route wave %s, B=%d (sizes %s): %.2f ms (%.2f ms a trial; "
+                "a single compare %.2f ms); peak %.1f MiB above the "
+                "resident state, %.0f B per trial and pixel; scores equal "
+                "the single compares bit for bit: %s"
+                % (path, b, sizes, ms, ms / b, single_ms, peak / 2**20,
+                   peak / b / npix, all(same)))
+            if not all(same):
+                raise RuntimeError("%s: wave B=%d scores %s, single %s"
+                                   % (path, b, list(scores), singles[:b]))
+    return worst
+
+
+def route_wave_large(dev):
+    """The wave at the 5.24 MPix of memory_envelope's tiled input: the
+    size quant_batch_sizes() gives there must run."""
+    comp, img, ds, q_in = _quant_start(ROUTE[0][0], dev, tile=2)
+    sizes = comp.quant_batch_sizes()
+    qs = _subtree(ds, q_in, sizes[-1])
+    base = comp.quant_base_upload(img)
+    _scores, ms, peak = _wave(comp, base, qs)
+    log("route wave photo_mosaic1 tiled 2x2 (%dx%d): sizes %s, B=%d: "
+        "%.2f ms, peak %.1f MiB above the resident state (%.0f B per trial "
+        "and pixel), card total %.1f MiB"
+        % (comp.width, comp.height, sizes, len(qs), ms, peak / 2**20,
+           peak / len(qs) / (comp.width * comp.height),
+           torch.cuda.get_device_properties(0).total_memory / 2**20))
+
+
+def route_sparse(dev):
+    """A seeded wave of SPARSE_FLIPS coefficient deltas into the resident
+    state of photo_mosaic1, unchunked and in chunks of 4096, against a
+    full compare of the same host image: distance and [4, NB] weights bit
+    for bit."""
+    comp, img, _ds, q_in = _quant_start(ROUTE[0][0], dev)
+    img.apply_global_quantization(q_in)
+    before = img.copy()
+    rng = np.random.RandomState(SPARSE_SEED)
+    nb = img.bw * img.bh
+    key = np.unique(rng.randint(0, nb, SPARSE_FLIPS) * 192
+                    + rng.randint(0, 3, SPARSE_FLIPS) * 64
+                    + rng.randint(1, 64, SPARSE_FLIPS))
+    bs, cks = key // 192, key % 192
+    for c in range(3):
+        sel = (cks >> 6) == c
+        img.comps[c].coeffs[bs[sel], cks[sel] & 63] = 0
+    vals = np.zeros(len(key), np.int32)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    full = comp.fetch_compare(
+        comp.dispatch_compare_with_weights(img, 1, 1.0, 1, 1))
+    full_ms = 1e3 * (time.time() - t0)
+    for top in (None, 4096):
+        comp.backend_sync_full(before)
+        if top:
+            comp._SPARSE_COEFF_TOP = comp._SPARSE_COEFF_CHUNK = top
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = comp.fetch_compare(comp.dispatch_compare_sparse_coeffs(
+            img, bs, cks, vals, 1, 1.0, 1, 1))
+        ms = 1e3 * (time.time() - t0)
+        same = got[0] == full[0] and np.array_equal(got[1], full[1])
+        log("route sparse wave, %d coefficients%s: %.2f ms (full upload "
+            "and compare %.2f ms); distance %.6f, weights [4, %d]; equal "
+            "to the full compare bit for bit: %s"
+            % (len(key), ", chunks of %d" % top if top else "", ms,
+               full_ms, got[0], nb, same))
+        if not same:
+            raise RuntimeError("sparse wave differs from the full compare")
+
+
+def route_encodes(dev, outputs):
+    """Both mosaics encoded under every ROUTE_CONFIGS entry, in turns
+    (the order reversed every other round), with the launch counts set to
+    0 before and read after: each encode's bytes must equal the
+    default path's (phase_e2e) and lie within 2% of golden, and every
+    kernel of the 4:4:4 and 4:2:0 paths must launch. Returns
+    {config: {path: [(wall, timings, counters), ...]}}."""
+    from guetzli_tpu_torch import config
+    from guetzli_tpu_torch.kernels import tile_compare as kc
+    from guetzli_tpu_torch.search.processor import ProcessStats
+    log("route auto on cuda: %s" % config.CUDA_AUTO)
+    _reset_launches()
+    runs = {name: {p: [] for p, _g in ROUTE} for name, _e in ROUTE_CONFIGS}
+    for r in range(ROUTE_ROUNDS):
+        order = ROUTE_CONFIGS if r % 2 == 0 else ROUTE_CONFIGS[::-1]
+        for name, env in order:
+            for path, golden in ROUTE:
+                stats = ProcessStats()
+                with _route_env(env):
+                    out, wall = _serial_encode(path, dev, stats)
+                t, c = stats.timings, stats.counters
+                runs[name][path].append((wall, t, c))
+                log("route %s, %s: %.2f s, %d bytes; select_quant_matrix "
+                    "%.3f s (trials %d, waves %d of %d trials), back_end "
+                    "%.3f s (backend_dispatch %.3f, backend_fetch %.3f, "
+                    "iterations %d)"
+                    % (name, path, wall, len(out),
+                       t.get("select_quant_matrix", 0),
+                       c.get("quant_trials", 0), c.get("quant_waves", 0),
+                       c.get("quant_wave_trials", 0), t.get("back_end", 0),
+                       t.get("backend_dispatch", 0),
+                       t.get("backend_fetch", 0), c.get("backend_iters", 0)))
+                if stats.search_error is not None:
+                    raise RuntimeError("search failed: %s"
+                                       % stats.search_error)
+                _check_golden(path, out, golden)
+                if out != outputs[path]:
+                    raise RuntimeError("%s under %s: %d bytes, the default "
+                                       "path gave %d" % (
+                                           path, name, len(out),
+                                           len(outputs[path])))
+    launches = _launch_counts()
+    launches.pop(kc.ENTRY)
+    log("route launches: %s" % ", ".join("%s %d" % kv
+                                         for kv in launches.items()))
+    if min(launches.values()) == 0:
+        raise RuntimeError("a kernel was not launched on the route's "
+                           "encodes: %s" % launches)
+    for name, _e in ROUTE_CONFIGS:
+        for path, _g in ROUTE:
+            rs = runs[name][path]
+            med = {k: float(np.median([t.get(k, 0.0) for _w, t, _c in rs]))
+                   for k in ("select_quant_matrix", "backend_dispatch",
+                             "backend_fetch", "back_end")}
+            log("route median %s, %s: wall %.3f s, %s" % (
+                name, path, float(np.median([w for w, _t, _c in rs])),
+                ", ".join("%s %.3f s" % kv for kv in med.items())))
+    return runs
+
+
+def phase_route(dev, outputs):
+    """The accelerator search route: waves against single compares, the
+    large wave, the sparse wave, then the paired encodes."""
+    worst = route_waves(dev)
+    log("route wave peak: at most %.0f B per trial and pixel "
+        "(Comparator._QUANT_TRIAL_BYTES_PER_PIXEL %d)" % (
+            worst, _trial_bytes()))
+    route_wave_large(dev)
+    route_sparse(dev)
+    route_encodes(dev, outputs)
+
+
+def _trial_bytes():
+    from guetzli_tpu_torch.comparator import Comparator
+    return Comparator._QUANT_TRIAL_BYTES_PER_PIXEL
+
+
 def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
@@ -929,7 +1199,9 @@ def main():
     launches["tile_compare"] = (phase_checkcuda(dev)
                                 + phase_444p_e2e(dev, outputs))
     phase_butteraugli(dev)
-    corpus_launches = phase_corpus(dev, outputs, walls)
+    phase_route(dev, outputs)
+    with _route_env({"TREE_QUANT": "1"}):
+        corpus_launches = phase_corpus(dev, outputs, walls)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         rec["corpus_launches"] = corpus_launches.get(rec["name"], 0)

@@ -47,14 +47,15 @@ Flags:
 # tiled 2x2 (5.24 MPix) at q95, one process each (python -m
 # guetzli_tpu_torch.memory_envelope, on an NVIDIA H100 80GB HBM3 at
 # 700.00 W): the peak RSS is mostly PyTorch's CUDA runtime (4.75 GB
-# before the encode starts); the card holds the image's state.
+# before the encode starts); the card holds the image's state, and its
+# peak is the quant tree's widest wave (the card's default route).
 K_BYTES_PER_PIXEL = 110
 K_LOWEST_MEMUSAGE_MB = 100
 K_DEFAULT_MEMLIMIT_MB = 6000
-K_MEASURED_BASE_MB = 6110         # process peak RSS
-K_MEASURED_BYTES_PER_PIXEL = 135
-K_DEVICE_BASE_MB = 38             # torch.cuda.max_memory_allocated
-K_DEVICE_BYTES_PER_PIXEL = 1427
+K_MEASURED_BASE_MB = 6165         # process peak RSS
+K_MEASURED_BYTES_PER_PIXEL = 134
+K_DEVICE_BASE_MB = 2503           # torch.cuda.max_memory_allocated
+K_DEVICE_BYTES_PER_PIXEL = 3139
 K_DEFAULT_QUALITY = 95
 
 

@@ -12,6 +12,17 @@ once and keeps it on its device, and offers:
     4:2:0 passes' frozen chroma bytes, Y bytes, chroma neighborhoods and
     macroblock children.
 
+It also offers the JAX package's accelerator search route:
+
+  * the batched quant compare: B requantizations of a device-resident
+    base, each trial's score bit for bit that of its single compare
+    (dispatch_quant_batch, for search/quant_tree.py);
+  * the back end's device-resident coefficient state, updated by sparse
+    per-coefficient deltas instead of whole-plane uploads
+    (backend_sync_full, dispatch_compare_sparse_coeffs);
+  * fetch_compare_pure, the side-effect-free fetch of the pipelined back
+    end's prefetch thread.
+
 PyTorch runs eagerly and CUDA work is queued asynchronously, so the
 dispatch_* / fetch_* pairs keep the JAX package's structure: a dispatch
 queues the device work, its fetch reads the results on the host.
@@ -63,6 +74,38 @@ def _full_compare_420(y_coeffs, u_coeffs, v_coeffs, xyb0, ybw, ybh, cbw,
     xyb1 = opsin_dynamics_image(img_ops.srgb_to_linear(srgb))
     dmap = dm.diffmap_opsin_dynamics(xyb0, xyb1)
     return dm.score_from_diffmap(dmap), dmap
+
+
+def _device_quantize(c, q):
+    """Round int32 coefficients to multiples of q (guetzli/quantize.h):
+    the device twin of search/state.quantize, with C truncation
+    semantics, bit for bit (JAX comparator._device_quantize)."""
+    r = torch.sign(c) * torch.remainder(c.abs(), q)
+    delta = torch.where(2 * r > q, q - r,
+                        torch.where(-2 * r > q, -q - r, -r))
+    return c + delta
+
+
+def _quant_scores_444(base, qs, xyb0, bw, bh, w, h):
+    """B requantizations of a 4:4:4 base [3, NB, 64] by qs [B, 3, 64] ->
+    scores [B] (JAX _quant_batch_444_dyn at exact geometry). The chain
+    carries the trials on axis 1 of its planes; each trial's score is
+    that of _full_compare on its coefficients, bit for bit."""
+    coeffs = _device_quantize(base[:, None], qs.transpose(0, 1)[:, :, None])
+    lin = img_ops.coeffs_to_linear_rgb(coeffs, bw, bh, w, h, trial_axis=1)
+    xyb1 = opsin_dynamics_image(lin, trial_axis=1)
+    return dm.score_from_diffmap(dm.diffmap_opsin_dynamics(xyb0, xyb1))
+
+
+def _quant_scores_420(ybase, ubase, vbase, qs, xyb0, ybw, ybh, cbw, cbh, w,
+                      h):
+    """The 4:2:0 counterpart (JAX _quant_batch_420_dyn): bases [NB, 64]
+    per component -> scores [B]."""
+    y, u, v = (_device_quantize(b[None], qs[:, c, None])
+               for c, b in enumerate((ybase, ubase, vbase)))
+    srgb = img_ops.coeffs420_to_srgb(y, u, v, ybw, ybh, cbw, cbh, w, h)
+    xyb1 = opsin_dynamics_image(img_ops.srgb_to_linear(srgb, 1), 1)
+    return dm.score_from_diffmap(dm.diffmap_opsin_dynamics(xyb0, xyb1))
 
 
 def _dilate_max(x):
@@ -126,6 +169,8 @@ class Comparator:
         self.xyb0 = self._original_opsin() if xyb0 is None else xyb0
         self.distance = 0.0
         self.distmap = None
+        # The back end's device-resident coefficients (backend_sync_full).
+        self._dev_coeffs = None
         # Block-comparison state (built by start_block_comparisons).
         self._mask_xyz = None
         self._block_state = {}
@@ -148,10 +193,13 @@ class Comparator:
         """Rebuild the device state after a recoverable error (runtime.py):
         recompute the original's opsin on the same device and drop the
         last distmap, the mask and the block state, which the next compare
-        or start_block_comparisons rebuilds. The search state lives on the
-        host, so a replayed dispatch gives the same result."""
+        or start_block_comparisons rebuilds, and the back end's resident
+        coefficients, which a replay re-syncs from the host image. The
+        search state lives on the host, so a replayed dispatch gives the
+        same result."""
         self.xyb0 = self._original_opsin()
         self.distmap = None
+        self._dev_coeffs = None
         self._mask_xyz = None
         self._block_state = {}
 
@@ -176,6 +224,78 @@ class Comparator:
 
     def compare_img(self, img):
         return self.fetch_compare_plain(self.dispatch_compare(img))
+
+    # -- batched quant-matrix trials (search/quant_tree.py) --------------
+
+    def supports_quant_batch(self):
+        """True. The JAX package ties its waves to padded bucket geometry
+        because XLA compiles one program per bucket and batch size; the
+        port runs its eager chain at the image's exact geometry with any
+        number of trials, so every comparator takes them."""
+        return True
+
+    def quant_base_upload(self, img):
+        """Put the quant search's base (the dequantized input coefficients
+        every trial requantizes) on the device: an opaque handle for
+        dispatch_quant_batch."""
+        if img.is_444():
+            return "444", (self._up(img.coeffs),), (img.bw, img.bh)
+        y, u, v = img.comps
+        return ("420", tuple(self._up(c.coeffs) for c in img.comps),
+                (y.bw, y.bh, u.bw, u.bh))
+
+    # JAX's wave sizes: the tree's waves hold at most the largest.
+    _QUANT_BATCH_SIZES = (4, 8)
+    # Device bytes per image pixel one trial of a wave adds at its peak,
+    # rounded up from the largest measured: 888-899 B on the two mosaics
+    # (4:4:4 and 4:2:0, waves of 4 and 8) and 957 B at photo_mosaic1
+    # tiled 2x2 (5.24 MPix), on an NVIDIA H100 80GB HBM3 at 700 W
+    # (chip_smoke.py's route phase; PERF.md).
+    _QUANT_TRIAL_BYTES_PER_PIXEL = 1024
+    # The share of the card's free memory a wave may take.
+    _QUANT_WAVE_MEMORY_SHARE = 0.5
+
+    def quant_batch_sizes(self):
+        """The wave sizes this image may use: JAX's (4, 8) where a wave
+        fits in half of the card's free memory (the allocator's cached
+        blocks count as free) at the measured bytes per trial, else the
+        number that fits, at least 1. The CPU takes (4, 8)."""
+        if self.device.type != "cuda":
+            return self._QUANT_BATCH_SIZES
+        free, _total = torch.cuda.mem_get_info(self.device)
+        free += (torch.cuda.memory_reserved(self.device)
+                 - torch.cuda.memory_allocated(self.device))
+        per_trial = (self.width * self.height
+                     * self._QUANT_TRIAL_BYTES_PER_PIXEL)
+        cap = max(1, int(free * self._QUANT_WAVE_MEMORY_SHARE // per_trial))
+        sizes = tuple(s for s in self._QUANT_BATCH_SIZES if s <= cap)
+        return sizes or (min(cap, self._QUANT_BATCH_SIZES[0]),)
+
+    def dispatch_quant_batch(self, base, qs):
+        """Queue len(qs) quant-matrix trials as one batched compare; the
+        handle's fetch is fetch_quant_scores. The wave runs exactly its
+        trials: no padding to a batch size (JAX pads for its compile
+        cache)."""
+        q = self._up(np.stack([np.asarray(x, np.int32).reshape(3, 64)
+                               for x in qs]))
+        kind, planes, grid = base
+        fn = _quant_scores_444 if kind == "444" else _quant_scores_420
+        scores = fn(*planes, q, self.xyb0, *grid, self.width, self.height)
+        return scores, len(qs)
+
+    def fetch_quant_scores(self, handle):
+        """[B] float64 scores (one device-to-host copy)."""
+        scores, b = handle
+        return scores.cpu().numpy()[:b].astype(np.float64)
+
+    def set_quant_result(self, handle, row, score):
+        """Adopt trial `row` of a fetched wave as the current distance.
+        The distmap is left as it was: nothing reads it between the quant
+        search and the first back-end compare, which replaces it (the
+        first up-iteration uses unit weights; zeroing works from the
+        whole-image mask) -- JAX comparator.set_quant_result."""
+        del handle, row
+        self.distance = float(score)
 
     def distance_ok(self, target_mul):
         return self.distance <= target_mul * self.target_distance
@@ -313,32 +433,126 @@ class Comparator:
             sizex, sizey, gbw, gbh, direction > 0)
         return out.cpu().numpy()
 
-    def dispatch_compare_with_weights(self, img, direction, target_mul,
-                                      factor_x, factor_y):
-        """Queue the compare + next-iteration block weights; returns a
-        handle for fetch_compare() or fetch_compare_many(): (score, dmap,
-        w4, args), args being this call's arguments for replay()."""
+    def _with_weights(self, score, dmap, img, direction, target_mul,
+                      factor_x, factor_y, resident):
+        """A compare's handle with the next iteration's block weights:
+        (score, dmap, w4, args), args being what replay() needs."""
         sizex, sizey, gbw, gbh = self._grid_dims(factor_x, factor_y)
-        score, dmap = self.dispatch_compare(img)
         w4 = _weights_all_radii_impl(
             dmap, _F32(self.target_distance * target_mul), sizex, sizey,
             gbw, gbh, direction > 0)
         return score, dmap, w4, (img, direction, target_mul, factor_x,
-                                 factor_y)
+                                 factor_y, resident)
+
+    def dispatch_compare_with_weights(self, img, direction, target_mul,
+                                      factor_x, factor_y):
+        """Queue the compare + next-iteration block weights; returns a
+        handle for fetch_compare() or fetch_compare_many()."""
+        score, dmap = self.dispatch_compare(img)
+        return self._with_weights(score, dmap, img, direction, target_mul,
+                                  factor_x, factor_y, False)
 
     def replay(self, handle):
         """Queue a handle's compare again. The image is the one the handle
         was dispatched for: until the handle is fetched, its owner does
         not change its coefficients, so the replay gives the same
-        result."""
-        return self.dispatch_compare_with_weights(*handle[3])
+        result. A compare of the resident state first re-syncs it from
+        that image (a recovery may have dropped it)."""
+        img, direction, target_mul, factor_x, factor_y, resident = \
+            handle[3]
+        if not resident:
+            return self.dispatch_compare_with_weights(
+                img, direction, target_mul, factor_x, factor_y)
+        self.backend_sync_full(img)
+        return self.dispatch_compare_sparse(img, (), direction, target_mul,
+                                            factor_x, factor_y)
 
     def fetch_compare(self, handle):
-        """Complete a dispatch_compare_with_weights: (distance, [4, NB])."""
-        score, dmap, w4, _args = handle
-        self.distance = float(score)
+        """Complete a compare handle: (distance, [4, NB])."""
+        d, w4, dmap = self.fetch_compare_pure(handle)
+        self.distance = d
         self.distmap = dmap
-        return self.distance, w4.cpu().numpy()
+        return d, w4
+
+    def fetch_compare_pure(self, handle):
+        """fetch_compare without side effects on the comparator, so a
+        prefetch thread may run it (the pipelined back end applies the
+        distance and distmap on the main thread at its join): (distance,
+        [4, NB] weights, the device distmap), in one device-to-host
+        copy."""
+        score, dmap, w4, _args = handle
+        flat = torch.cat([score.reshape(1), w4.reshape(-1)]).cpu().numpy()
+        return float(flat[0]), flat[1:].reshape(w4.shape), dmap
+
+    # -- device-resident back-end coefficient state ----------------------
+
+    # Sparse coefficient deltas: a wave of m flipped coefficients ships
+    # its m (index, value) pairs as they are -- the port compiles nothing
+    # per size, so JAX's fixed rungs (_SPARSE_COEFF_SIZES, which pad a
+    # wave for its compile cache) have no use here. A wave above
+    # _SPARSE_COEFF_TOP entries first goes in scatter-only chunks of
+    # _SPARSE_COEFF_CHUNK entries, as in JAX, which bounds the size of
+    # one upload (tests/test_torch_sparse_backend.py shrinks both).
+    _SPARSE_COEFF_TOP = 1 << 20
+    _SPARSE_COEFF_CHUNK = 1 << 20
+
+    def supports_sparse(self, img, comp_mask):
+        """The resident state is the 4:4:4 pass's [3, NB, 64] planes (JAX
+        supports_sparse; the 4:2:0 passes upload whole planes)."""
+        return comp_mask == 7 and img.is_444()
+
+    def backend_sync_full(self, img):
+        """Upload the back end's coefficient state [3, NB, 64] int32 from
+        the host image; the sparse dispatches update it in place."""
+        self._dev_coeffs = self._up(img.coeffs)
+        self._dev_grid = (img.bw, img.bh)
+
+    def _scatter(self, cidx, cvals):
+        """Set flat entries c*NB*64 + b*64 + k of the resident state."""
+        self._dev_coeffs.view(-1)[self._up(cidx)] = self._up(cvals)
+
+    def dispatch_compare_sparse_coeffs(self, img, blocks_idx, cks, vals,
+                                       direction, target_mul, factor_x,
+                                       factor_y):
+        """dispatch_compare_with_weights of the resident state after the
+        flip loop's (block, c*64+k, new value) triplets are written into
+        it: 12 bytes per flipped coefficient instead of the whole planes
+        (JAX _scatter_coeff_compare_444_dyn, and _scatter_coeffs_only
+        for the chunks of a wave above _SPARSE_COEFF_TOP)."""
+        bw, bh = self._dev_grid
+        cks = np.asarray(cks, np.int64)
+        cidx = ((cks >> 6) * (bw * bh * 64)
+                + np.asarray(blocks_idx, np.int64) * 64 + (cks & 63))
+        cvals = np.asarray(vals, np.int32)
+        m, pos = len(cidx), 0
+        while m - pos > self._SPARSE_COEFF_TOP:
+            end = pos + self._SPARSE_COEFF_CHUNK
+            self._scatter(cidx[pos:end], cvals[pos:end])
+            pos = end
+        if pos < m:
+            self._scatter(cidx[pos:], cvals[pos:])
+        return self._compare_resident(img, direction, target_mul, factor_x,
+                                      factor_y)
+
+    def dispatch_compare_sparse(self, img, changed, direction, target_mul,
+                                factor_x, factor_y):
+        """The per-block form (JAX _scatter_compare_444_dyn): the blocks
+        `changed` (indexes on the image's grid) are written whole from the
+        host image into the resident state, then compared."""
+        changed = np.asarray(changed, np.int64)
+        if len(changed):
+            self._dev_coeffs[:, self._up(changed), :] = self._up(
+                np.stack([c.coeffs[changed] for c in img.comps]))
+        return self._compare_resident(img, direction, target_mul, factor_x,
+                                      factor_y)
+
+    def _compare_resident(self, img, direction, target_mul, factor_x,
+                          factor_y):
+        bw, bh = self._dev_grid
+        score, dmap = _full_compare(self._dev_coeffs, self.xyb0, bw, bh,
+                                    self.width, self.height)
+        return self._with_weights(score, dmap, img, direction, target_mul,
+                                  factor_x, factor_y, True)
 
     def compute_block_error_adjustment_weights(
             self, direction, max_block_dist, target_mul, factor_x, factor_y,

@@ -118,11 +118,14 @@ def fft8x8_squared(blocks):
         * float(_F32(consts.FFT_GLOBAL_MUL))
 
 
-def block_diff(b0, b1):
+def block_diff(b0, b1, trials=False):
     """Batched ButteraugliBlockDiff (butteraugli.cc:602-684).
 
     b0, b1: [..., 3, 64] XYB blocks (row-major y*8+x pixels).
-    Returns (diff_dc, diff_ac, diff_edge_dc), each [..., 3]."""
+    Returns (diff_dc, diff_ac, diff_edge_dc), each [..., 3]. With
+    ``trials``, axis 0 holds independent trials and the DFTs' matrix
+    products run once per trial, each with the shape of a one-trial call
+    (a GEMM's algorithm may depend on its row count)."""
     csf = torch.as_tensor(consts.CSF8X8.astype(np.float32), device=b0.device)
     csf0 = float(_F32(consts.CSF8X8[0]))
     diff = b0 - b1
@@ -148,10 +151,16 @@ def block_diff(b0, b1):
     bavg = (b0 + b1) * 0.5
     bhd = (b0 - b1) * 0.5
     lead = bavg.shape[:-2]
-    quad = torch.stack([bavg[..., 1, :], bhd[..., 0, :], bhd[..., 1, :],
-                        bhd[..., 2, :]]).reshape((4,) + lead + (8, 8))
-    ffts = fft8x8_squared(quad)
-    y_avg, x_hd, y_hd, z_hd = ffts[0], ffts[1], ffts[2], ffts[3]
+    parts = [bavg[..., 1, :], bhd[..., 0, :], bhd[..., 1, :],
+             bhd[..., 2, :]]
+    if trials:
+        quad = torch.stack(parts, 1).reshape(
+            lead[:1] + (4,) + lead[1:] + (8, 8))
+        ffts = torch.stack([fft8x8_squared(q) for q in quad])
+    else:
+        ffts = fft8x8_squared(torch.stack(parts).reshape(
+            (4,) + lead + (8, 8)))
+    y_avg, x_hd, y_hd, z_hd = ffts.unbind(1 if trials else 0)
 
     sel = slice(4, 37)
     d = csf[sel]

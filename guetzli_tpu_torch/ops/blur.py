@@ -63,14 +63,33 @@ def _conv_rows(x, taps, offset, step):
     return F.conv1d(p, taps.view(1, 1, k), stride=step)[:, 0, :]
 
 
-def blur(channel, sigma: float, border_ratio: float = 0.0):
+def _conv_trials(rows, taps, offset, step):
+    """_conv_rows of each trial's rows [T, R, C] -> [T, R, C'], one
+    convolution per trial: every call has the shape of a one-trial blur,
+    so a trial's bits do not depend on how many trials run beside it
+    (cuDNN and oneDNN may pick another algorithm for another row
+    count)."""
+    if rows.shape[0] == 1:
+        return _conv_rows(rows[0], taps, offset, step)[None]
+    return torch.stack([_conv_rows(r, taps, offset, step) for r in rows])
+
+
+def blur(channel, sigma: float, border_ratio: float = 0.0,
+         trial_axis=None):
     """Blur an image [..., H, W] (leading axes batched).
 
     Mirrors _Blur (butteraugli.cc:100-148): horizontal pass (with stride),
-    vertical pass on the subsampled intermediate, then nearest upsample."""
+    vertical pass on the subsampled intermediate, then nearest upsample.
+    ``trial_axis`` names a leading axis of independent trials (the
+    batched quant compare, comparator.py): each trial's rows are
+    convolved in a call of their own, with the bits of a blur of that
+    trial alone."""
     dev = channel.device
-    lead = channel.shape[:-2]
-    h, w = channel.shape[-2:]
+    x = channel[None] if trial_axis is None else \
+        channel.movedim(trial_axis, 0)
+    nt = x.shape[0]
+    lead = x.shape[1:-2]
+    h, w = x.shape[-2:]
     taps, offset = gauss_taps(sigma)
     step = blur_step(sigma)
     jt = torch.as_tensor(taps, device=dev)
@@ -79,16 +98,18 @@ def blur(channel, sigma: float, border_ratio: float = 0.0):
     scale_y = torch.as_tensor(_border_weights(h, sigma, border_ratio),
                               device=dev)
 
-    t = _conv_rows(channel.reshape(-1, w), jt, offset, step) * scale_x
+    t = _conv_trials(x.reshape(nt, -1, w), jt, offset, step) * scale_x
     dw = t.shape[-1]
-    t = t.reshape(lead + (h, dw)).transpose(-1, -2).reshape(-1, h)
-    t = _conv_rows(t, jt, offset, step) * scale_y
+    t = t.reshape((nt,) + lead + (h, dw)).transpose(-1, -2) \
+        .reshape(nt, -1, h)
+    t = _conv_trials(t, jt, offset, step) * scale_y
     dh = t.shape[-1]
-    out = t.reshape(lead + (dw, dh)).transpose(-1, -2)
+    out = t.reshape((nt,) + lead + (dw, dh)).transpose(-1, -2)
     if step > 1:
         out = out.repeat_interleave(step, dim=-2)[..., :h, :]
         out = out.repeat_interleave(step, dim=-1)[..., :w]
-    return out.contiguous()
+    out = out.contiguous()
+    return out[0] if trial_axis is None else out.movedim(0, trial_axis)
 
 
 @lru_cache(maxsize=None)

@@ -9,6 +9,15 @@ Whole planar images in, the per-step-grid loops of the reference become
 strided index sets and batched 8x8 block ops. This is the exact-geometry
 chain of the JAX package (its padded-bucket ``_dyn`` variants exist for XLA
 compile caching and are not ported).
+
+Every function also takes B independent trials (the batched quant
+compare, comparator.py): image planes [3, B, H, W] (the original's
+[3, H, W] broadcasts), channel-last maps [B, ny, nx, 3], single planes
+[B, H, W]. A trial's bits are those of a compare of that trial alone:
+the ops whose rounding may depend on the batch (the blurs' convolutions,
+the DFTs' matrix products, the sRGB power) run once per trial
+(blur.py, blockdiff.py, image.py); every other op is elementwise, a
+gather or a reduction within one trial.
 """
 
 import numpy as np
@@ -35,13 +44,14 @@ def _mhic_mix(y, sqr_max):
 
 
 def mask_high_intensity_change(xyb0, xyb1):
-    """butteraugli.cc:791-843. Inputs/outputs [3, H, W]."""
+    """butteraugli.cc:791-843. Inputs/outputs [3, H, W] (or [3, B, H,
+    W])."""
     ave = (xyb0 + xyb1) * 0.5
     y = ave[1]
-    h, w = y.shape
+    h, w = y.shape[-2:]
 
     def sq_shift(dy, dx):
-        shifted = torch.roll(y, shifts=(-dy, -dx), dims=(0, 1))
+        shifted = torch.roll(y, shifts=(-dy, -dx), dims=(-2, -1))
         d = shifted - y
         d = d * d
         valid = torch.ones((h, w), dtype=torch.bool, device=y.device)
@@ -63,12 +73,11 @@ def mask_high_intensity_change(xyb0, xyb1):
 
 
 def _pad_to_res(m, w, h, step):
-    """Zero-pad a step-grid map [ny, nx, ...] to the full res grid
-    [ceil(h/step), ceil(w/step), ...]."""
+    """Zero-pad a step-grid map [..., ny, nx, 3] to the full res grid
+    [..., ceil(h/step), ceil(w/step), 3]."""
     ry = -(-h // step)
     rx = -(-w // step)
-    pads = [0, 0] * (m.dim() - 2) + [0, rx - m.shape[1], 0, ry - m.shape[0]]
-    return F.pad(m, pads)
+    return F.pad(m, (0, 0, 0, rx - m.shape[-2], 0, ry - m.shape[-3]))
 
 
 def _res_positions(size, step, margin):
@@ -83,9 +92,10 @@ def _idx(a, device):
 
 def edge_detector_map(xyb0, xyb1, step=3):
     """butteraugli.cc:689-738, 1119-1149 -> [ry, rx, 3] res grid."""
-    _, h, w = xyb0.shape
+    h, w = xyb0.shape[-2:]
     dev = xyb0.device
-    pairs = [blur(torch.stack([xyb0[c], xyb1[c]]), s, 0.0)
+    trial_axis = 1 if xyb0.dim() == 4 else None
+    pairs = [blur(torch.stack([xyb0[c], xyb1[c]]), s, 0.0, trial_axis)
              for c, s in enumerate(consts.EDGE_DETECTOR_SIGMAS)]
     blurred0 = torch.stack([p[0] for p in pairs])
     blurred1 = torch.stack([p[1] for p in pairs])
@@ -101,8 +111,8 @@ def edge_detector_map(xyb0, xyb1, step=3):
         return torch.stack([(vx0 - vx1) ** 2, (vy0 - vy1) ** 2,
                             (vz0 - vz1) ** 2])
 
-    hmap = lf_sq(dir_diff(blurred0, 2), dir_diff(blurred1, 2))
-    vmap = lf_sq(dir_diff(blurred0, 1), dir_diff(blurred1, 1))
+    hmap = lf_sq(dir_diff(blurred0, -1), dir_diff(blurred1, -1))
+    vmap = lf_sq(dir_diff(blurred0, -2), dir_diff(blurred1, -2))
 
     xs = np.arange(w)
     ys = np.arange(h)
@@ -111,7 +121,7 @@ def edge_detector_map(xyb0, xyb1, step=3):
     px = np.minimum(_res_positions(w, step, 8 - step), w - 8)
     py = np.minimum(_res_positions(h, step, 8 - step), h - 8)
 
-    acc = torch.zeros((3, len(py), len(px)), device=dev)
+    acc = torch.zeros(hmap.shape[:-2] + (len(py), len(px)), device=dev)
     cnt = np.zeros((len(py), len(px)), dtype=np.float32)
     for oy, ox in ((0, 0), (7, 0), (0, 7), (7, 7)):
         gy = py + oy
@@ -120,18 +130,20 @@ def edge_detector_map(xyb0, xyb1, step=3):
         vv = np.repeat(v_ok[gy][:, None], len(px), axis=1)
         gyt, gxt = _idx(gy, dev)[:, None], _idx(gx, dev)[None, :]
         acc = acc + torch.where(torch.as_tensor(hv, device=dev),
-                                hmap[:, gyt, gxt], 0.0)
+                                hmap[..., gyt, gxt], 0.0)
         acc = acc + torch.where(torch.as_tensor(vv, device=dev),
-                                vmap[:, gyt, gxt], 0.0)
+                                vmap[..., gyt, gxt], 0.0)
         cnt = cnt + hv + vv
     mul = _F32(consts.EDGE_DETECTOR_WEIGHT) * _F32(8.0) / cnt
-    out = (acc * torch.as_tensor(mul, device=dev)).permute(1, 2, 0)
+    out = (acc * torch.as_tensor(mul, device=dev)).movedim(0, -1)
     return _pad_to_res(out, w, h, step)
 
 
 def block_diff_map(xyb0, xyb1, step=3):
     """butteraugli.cc:1081-1117 -> (dc, ac) maps [ry, rx, 3]."""
-    _, h, w = xyb0.shape
+    h, w = xyb0.shape[-2:]
+    lead = xyb0.shape[1:-2]
+    n = len(lead)
     dev = xyb0.device
     px = np.minimum(_res_positions(w, step, 8 - step - 1), w - 8)
     py = np.minimum(_res_positions(h, step, 8 - step - 1), h - 8)
@@ -140,18 +152,22 @@ def block_diff_map(xyb0, xyb1, step=3):
     xx = _idx((px[:, None] + np.arange(8)[None, :]).ravel(), dev)
 
     def windows(img):                      # [3, H, W] -> [ny, nx, 3, 64]
-        wins = img[:, yy, :][:, :, xx].reshape(3, ny, 8, nx, 8)
-        return wins.permute(1, 3, 0, 2, 4).reshape(ny, nx, 3, 64)
+        wins = img[..., yy, :][..., xx].reshape(
+            (3,) + lead + (ny, 8, nx, 8))
+        perm = tuple(range(1, n + 1)) + (n + 1, n + 3, 0, n + 2, n + 4)
+        return wins.permute(perm).reshape(lead + (ny, nx, 3, 64))
 
-    dc, ac, _edge = bd.block_diff(windows(xyb0), windows(xyb1))
+    dc, ac, _edge = bd.block_diff(windows(xyb0), windows(xyb1),
+                                  trials=n > 0)
     return _pad_to_res(dc, w, h, step), _pad_to_res(ac, w, h, step)
 
 
 def edge_detector_low_freq(xyb0, xyb1, ac_map, step=3):
     """butteraugli.cc:1151-1205; adds into ac_map at x-offset 8//step."""
-    _, h, w = xyb0.shape
+    h, w = xyb0.shape[-2:]
     dev = xyb0.device
-    both = blur(torch.stack([xyb0, xyb1]), consts.EDGE_LF_SIGMA, 0.0)
+    both = blur(torch.stack([xyb0, xyb1]), consts.EDGE_LF_SIGMA, 0.0,
+                2 if xyb0.dim() == 4 else None)
     e = both[1] - both[0]
     ys = _res_positions(h, step, 8)
     xs = _res_positions(w, step, 8)
@@ -159,13 +175,14 @@ def edge_detector_low_freq(xyb0, xyb1, ac_map, step=3):
         return ac_map
 
     def shifted(dy, dx):
-        return e[:, _idx(ys + dy, dev)[:, None], _idx(xs + dx, dev)[None, :]]
+        return e[..., _idx(ys + dy, dev)[:, None],
+                 _idx(xs + dx, dev)[None, :]]
 
     base = shifted(0, 0)
     diffs = [base - shifted(0, 8), base - shifted(8, 0),
              base - shifted(6, 6)]
     # Direction 3 reaches x-6; zero where x < 8.
-    far = base - e[:, _idx(ys + 6, dev)[:, None],
+    far = base - e[..., _idx(ys + 6, dev)[:, None],
                    _idx(np.maximum(xs - 6, 0), dev)[None, :]]
     near = torch.as_tensor(xs < 8, device=dev)[None, None, :]
     diffs.append(torch.where(near, torch.zeros_like(base), far))
@@ -174,10 +191,10 @@ def edge_detector_low_freq(xyb0, xyb1, ac_map, step=3):
              for d in diffs]
     md = torch.maximum(torch.maximum(per_k[0], per_k[1]),
                        torch.maximum(per_k[2], per_k[3]))
-    add = md.permute(1, 2, 0) * float(_F32(consts.EDGE_LF_MUL))
+    add = md.movedim(0, -1) * float(_F32(consts.EDGE_LF_MUL))
     off = 8 // step
-    pad_y = ac_map.shape[0] - add.shape[0]
-    pad_x = ac_map.shape[1] - add.shape[1] - off
+    pad_y = ac_map.shape[-3] - add.shape[-3]
+    pad_x = ac_map.shape[-2] - add.shape[-2] - off
     return ac_map + F.pad(add, (0, 0, off, pad_x, 0, pad_y))
 
 
@@ -191,8 +208,8 @@ def diff_precompute(xyb0, xyb1):
 
     def sup(img):
         # Neighbor x+1 (x-1 at the right border), likewise y+1.
-        right = torch.cat([img[:, :, 1:], img[:, :, -2:-1]], dim=2)
-        down = torch.cat([img[:, 1:, :], img[:, -2:-1, :]], dim=1)
+        right = torch.cat([img[..., 1:], img[..., -2:-1]], dim=-1)
+        down = torch.cat([img[..., 1:, :], img[..., -2:-1, :]], dim=-2)
         return vals(img - right).abs() + vals(img - down).abs()
 
     return torch.minimum(sup(xyb0), sup(xyb1))
@@ -225,13 +242,15 @@ def min_square_val(img, square=4, offset=0):
 def mask(xyb0, xyb1):
     """butteraugli.cc:1495-1567 -> (mask, mask_dc) each [3, H, W]."""
     m = diff_precompute(xyb0, xyb1)
+    trial_axis = 0 if xyb0.dim() == 4 else None
     chans = []
     for c in range(3):
         mc = average5x5(m[c])
         mc = min_square_val(mc, 4, 0)
-        chans.append(blur(mc, consts.MASK_SIGMAS[c], 0.0))
+        chans.append(blur(mc, consts.MASK_SIGMAS[c], 0.0, trial_axis))
     p = torch.stack(chans) * torch.as_tensor(
-        consts.MASK_W.astype(np.float32), device=xyb0.device)[:, None, None]
+        consts.MASK_W.astype(np.float32), device=xyb0.device).reshape(
+            (3,) + (1,) * (xyb0.dim() - 1))
     g2 = float(_F32(consts.K_GLOBAL_SCALE * consts.K_GLOBAL_SCALE))
     mask_out = torch.stack([bd.mask_lut("x", p[0]), bd.mask_lut("y", p[1]),
                             bd.mask_lut("b", p[2])]) * g2
@@ -247,39 +266,46 @@ def combine_channels(mask_xyb, mask_dc, dc_map, ac_map, edge_map, h, w,
     dev = mask_xyb.device
     ry = _idx(_res_positions(h, step, 8 - step) + 3, dev)
     rx = _idx(_res_positions(w, step, 8 - step) + 3, dev)
-    msel = mask_xyb[:, ry[:, None], rx[None, :]]
-    dsel = mask_dc[:, ry[:, None], rx[None, :]]
+    msel = mask_xyb[..., ry[:, None], rx[None, :]]
+    dsel = mask_dc[..., ry[:, None], rx[None, :]]
     ny, nx = len(ry), len(rx)
-    dc = dc_map[:ny, :nx].permute(2, 0, 1)
-    ac = ac_map[:ny, :nx].permute(2, 0, 1)
-    em = edge_map[:ny, :nx].permute(2, 0, 1)
+    dc = dc_map[..., :ny, :nx, :].movedim(-1, 0)
+    ac = ac_map[..., :ny, :nx, :].movedim(-1, 0)
+    em = edge_map[..., :ny, :nx, :].movedim(-1, 0)
     return (dc * dsel).sum(0) + (ac * msel).sum(0) + (em * msel).sum(0)
 
 
 def calculate_diffmap(res_map, h, w, step=3):
-    """Upsample-sqrt + clustered blur (butteraugli.cc:985-1044) -> [H, W]."""
+    """Upsample-sqrt + clustered blur (butteraugli.cc:985-1044) -> [H, W]
+    ([B, ny, nx] -> [B, H, W])."""
     s2 = (8 - step) // 2
     slope = _F32(consts.DIFFMAP_INITIAL_SLOPE)
     val = torch.where(res_map < float(_F32(1.0) / (slope * slope)),
                       float(slope) * res_map, sqrt(res_map))
-    up = val.repeat_interleave(step, 0).repeat_interleave(step, 1)
-    ny, nx = res_map.shape
-    dm = torch.zeros((h, w), dtype=res_map.dtype, device=res_map.device)
-    dm[s2:s2 + ny * step, s2:s2 + nx * step] = \
-        up[:min(ny * step, h - s2), :min(nx * step, w - s2)]
+    up = val.repeat_interleave(step, -2).repeat_interleave(step, -1)
+    ny, nx = res_map.shape[-2:]
+    dm = torch.zeros(res_map.shape[:-2] + (h, w), dtype=res_map.dtype,
+                     device=res_map.device)
+    dm[..., s2:s2 + ny * step, s2:s2 + nx * step] = \
+        up[..., :min(ny * step, h - s2), :min(nx * step, w - s2)]
     s = 8 - step
-    inner = dm[s2:s2 + h - s, s2:s2 + w - s]
-    blurred = blur(inner, consts.DIFFMAP_SIGMA, consts.DIFFMAP_BORDER_RATIO)
-    dm[s2:s2 + h - s, s2:s2 + w - s] += \
+    inner = dm[..., s2:s2 + h - s, s2:s2 + w - s]
+    blurred = blur(inner, consts.DIFFMAP_SIGMA, consts.DIFFMAP_BORDER_RATIO,
+                   0 if res_map.dim() == 3 else None)
+    dm[..., s2:s2 + h - s, s2:s2 + w - s] += \
         float(_F32(consts.DIFFMAP_MUL1)) * blurred
     return dm * float(_F32(1.0 / (1.0 + consts.DIFFMAP_MUL1)))
 
 
 def diffmap_opsin_dynamics(xyb0, xyb1, step=3):
-    """Full metric: opsin images [3, H, W] in, diffmap [H, W] out."""
-    _, h, w = xyb0.shape
+    """Full metric: opsin images [3, H, W] in, diffmap [H, W] out; B
+    trials' [3, B, H, W] against the original's [3, H, W] -> [B, H, W]."""
+    h, w = xyb1.shape[-2:]
     if h < 8 or w < 8:
-        return torch.zeros((h, w), dtype=xyb0.dtype, device=xyb0.device)
+        return torch.zeros(xyb1.shape[1:-2] + (h, w), dtype=xyb1.dtype,
+                           device=xyb1.device)
+    if xyb1.dim() > xyb0.dim():
+        xyb0 = xyb0[:, None]
     xyb0m, xyb1m = mask_high_intensity_change(xyb0, xyb1)
     edge_map = edge_detector_map(xyb0m, xyb1m, step)
     dc_map, ac_map = block_diff_map(xyb0m, xyb1m, step)
@@ -291,5 +317,5 @@ def diffmap_opsin_dynamics(xyb0, xyb1, step=3):
 
 
 def score_from_diffmap(dm):
-    """butteraugli.cc:1233-1239."""
-    return dm.max()
+    """butteraugli.cc:1233-1239: the max of a diffmap [..., H, W]."""
+    return dm.amax((-2, -1))

@@ -83,15 +83,25 @@ def pixels_to_srgb(yuv_planes):
     return ycbcr_to_rgb(px[0], px[1], px[2])
 
 
-def srgb_to_linear(rgb_int):
+def srgb_to_linear(rgb_int, trial_axis=None):
     """uint8-range ints -> linear float32 (gamma_correct.cc:23-33), in
     the closed form of the 256-entry table: the linear segment below 11
-    and the 2.4 power above (the JAX package's default form)."""
+    and the 2.4 power above (the JAX package's default form).
+
+    With ``trial_axis``, the power runs once per trial on a contiguous
+    copy of that trial: the CPU's vectorized pow and its scalar tail
+    round differently, and the tail's place depends on the tensor's
+    size, so one call over every trial would round a trial's last
+    pixels otherwise than a compare of that trial alone."""
     vf = rgb_int.to(torch.float32)
     lo = vf * _SRGB_LO
-    hi = 255.0 * torch.pow((vf * _SRGB_SCALE + _SRGB_OFF) * _SRGB_DIV,
-                           _SRGB_POW)
-    return torch.where(rgb_int < 11, lo, hi)
+    base = (vf * _SRGB_SCALE + _SRGB_OFF) * _SRGB_DIV
+    if trial_axis is None:
+        p = torch.pow(base, _SRGB_POW)
+    else:
+        p = torch.stack([torch.pow(t.contiguous(), _SRGB_POW)
+                         for t in base.unbind(trial_axis)], trial_axis)
+    return torch.where(rgb_int < 11, lo, 255.0 * p)
 
 
 def srgb_table(device):
@@ -103,7 +113,8 @@ def srgb_table(device):
 
 def coeffs_to_srgb(coeffs, bw, bh, w, h):
     """[3, NB, 64] int32 dequantized YUV444 coefficients -> [3, H, W] int32
-    sRGB bytes (OutputImage::ToSRGB, output_image.cc:654-701)."""
+    sRGB bytes (OutputImage::ToSRGB, output_image.cc:654-701); [3, B, NB,
+    64] -> [3, B, H, W] for B trials."""
     pix = idct_blocks(coeffs) << 4        # pixel cache is scaled x16
     return pixels_to_srgb(blocks_to_plane(pix, bw, bh, w, h))
 
@@ -117,8 +128,8 @@ def byte_plane(pix_x16):
 
 
 def chroma_byte_plane(coeffs, bw, bh, w, h):
-    """Factor-2 chroma component [NB, 64] -> full-res bytes [h, w]:
-    IDCT -> x16 subsampled plane -> fancy upsample -> dither."""
+    """Factor-2 chroma component [..., NB, 64] -> full-res bytes [..., h,
+    w]: IDCT -> x16 subsampled plane -> fancy upsample -> dither."""
     from guetzli_tpu_torch.ops import upsample as us
     sub = blocks_to_plane(idct_blocks(coeffs) << 4, bw, bh,
                           (w + 1) // 2, (h + 1) // 2)
@@ -128,7 +139,7 @@ def chroma_byte_plane(coeffs, bw, bh, w, h):
 def coeffs420_to_srgb(y_coeffs, u_coeffs, v_coeffs, ybw, ybh, cbw, cbh,
                       w, h):
     """YUV420 state -> [3, H, W] int32 sRGB bytes (OutputImage::ToSRGB with
-    factor-2 chroma)."""
+    factor-2 chroma); coefficients [B, NB, 64] -> [3, B, H, W]."""
     yb = byte_plane(blocks_to_plane(idct_blocks(y_coeffs) << 4, ybw, ybh,
                                     w, h))
     ub = chroma_byte_plane(u_coeffs, cbw, cbh, w, h)
@@ -136,8 +147,8 @@ def coeffs420_to_srgb(y_coeffs, u_coeffs, v_coeffs, ybw, ybh, cbw, cbh,
     return ycbcr_to_rgb(yb, ub, vb)
 
 
-def coeffs_to_linear_rgb(coeffs, bw, bh, w, h):
+def coeffs_to_linear_rgb(coeffs, bw, bh, w, h, trial_axis=None):
     """[3, NB, 64] int32 dequantized coefficients -> [3, H, W] linear RGB
-    (OutputImage::ToLinearRGB for a YUV444 image)."""
-    return srgb_to_linear(coeffs_to_srgb(coeffs, bw, bh, w, h))
-
+    (OutputImage::ToLinearRGB for a YUV444 image); [3, B, NB, 64] -> [3,
+    B, H, W] with trial_axis=1."""
+    return srgb_to_linear(coeffs_to_srgb(coeffs, bw, bh, w, h), trial_axis)

@@ -62,9 +62,11 @@ def opsin_from_blurred(rgb, blurred):
     return mix3(_XYB, cur)
 
 
-def opsin_dynamics_image(rgb):
-    """[3, H, W] linear RGB -> XYB opsin (butteraugli.cc:943-974)."""
-    return opsin_from_blurred(rgb, blur(rgb, consts.OPSIN_SIGMA, 0.0))
+def opsin_dynamics_image(rgb, trial_axis=None):
+    """[3, H, W] linear RGB -> XYB opsin (butteraugli.cc:943-974); [3, B,
+    H, W] for B trials with trial_axis=1."""
+    return opsin_from_blurred(
+        rgb, blur(rgb, consts.OPSIN_SIGMA, 0.0, trial_axis))
 
 
 def opsin_dynamics_blocks(rgb_blocks):

@@ -13,12 +13,13 @@ import torch
 
 
 def fancy_upsample(sub, w, h):
-    """x16 subsampled plane [hs, ws] int32 -> full-res x16 pixels [h, w].
+    """x16 subsampled plane [..., hs, ws] int32 -> full-res x16 pixels
+    [..., h, w].
 
     out[y,x] = (9*s[cy,cx] + 3*s[cy2,cx] + 3*s[cy,cx2] + s[cy2,cx2]) >> 4
     with (cx, cy) = (x>>1, y>>1) and cx2/cy2 the parity-directed neighbor,
     clamped at the plane's border (the kSubsampledEdgeSize edge fill)."""
-    hs, ws = sub.shape
+    hs, ws = sub.shape[-2:]
     dev = sub.device
     x = torch.arange(w, device=dev)
     y = torch.arange(h, device=dev)
@@ -26,10 +27,10 @@ def fancy_upsample(sub, w, h):
     cy = y >> 1
     cx2 = (cx + (x & 1) * 2 - 1).clamp(0, ws - 1)
     cy2 = (cy + (y & 1) * 2 - 1).clamp(0, hs - 1)
-    r1 = sub[cy]
-    r2 = sub[cy2]
-    return (9 * r1[:, cx] + 3 * r1[:, cx2] + 3 * r2[:, cx]
-            + r2[:, cx2]) >> 4
+    r1 = sub[..., cy, :]
+    r2 = sub[..., cy2, :]
+    return (9 * r1[..., cx] + 3 * r1[..., cx2] + 3 * r2[..., cx]
+            + r2[..., cx2]) >> 4
 
 
 def neighborhoods_10x10(sub, bw, bh):

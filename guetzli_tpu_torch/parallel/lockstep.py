@@ -6,7 +6,10 @@ trip per search step. Across a corpus those steps are independent, so
 each phase runs in lockstep over every image:
 
   * the quant search in rounds: every active image's trial compare is
-    queued before any is fetched (lockstep_select_quant_matrix);
+    queued before any is fetched (lockstep_select_quant_matrix); with the
+    quant tree on (config.py), every image's subtree waves are queued
+    and all their scores come back in one device-to-host copy a round
+    (search/quant_tree.lockstep_select_quant_matrix_tree);
   * each masking pass as ONE zeroing call over every image's blocks
     concatenated, with per-block error limits: one launch of the greedy
     kernel (B, B' or B'') and one of its compare (A, A' or A'') for the
@@ -15,18 +18,21 @@ each phase runs in lockstep over every image:
     fetch point (on a thread pool when threads > 1: the flips and the
     serialization are numpy and ctypes calls that release the GIL), then
     one combined device-to-host copy completes every compare
-    (comparator.fetch_compare_many).
+    (comparator.fetch_compare_many), the sparse dispatches of each
+    image's resident coefficients (config.sparse) among them.
 
 Each image keeps its own Processor and Comparator, and each decision
 depends only on that image's own results, so every output equals the
 serial api.encode_bytes bytes whatever the threads' interleaving. The
 custom kernels launch only from the calling thread (the zeroing call);
-the pool's threads queue PyTorch ops on the same stream.
+the pool's threads queue PyTorch ops on the same stream. A comparator's
+resident back-end coefficients belong to its image: only that image's
+generator updates them.
 
 Left out, with the JAX package's padded bucket geometry: the
-CompareBatcher (one vmapped program per wave of same-bucket compares) and
-the quant-tree search (search/quant_tree.py). JAX attaches both only to
-padded comparators; the port's comparators have exact geometry.
+CompareBatcher (one vmapped program per wave of same-bucket compares of
+different images). The back end is not pipelined here: a round's
+combined fetch already waits once for every image.
 """
 
 import sys
@@ -37,7 +43,7 @@ import numpy as np
 import torch
 
 from guetzli_tpu_torch import comparator as cmp_mod
-from guetzli_tpu_torch import runtime
+from guetzli_tpu_torch import config, runtime
 from guetzli_tpu_torch.search import zeroing
 from guetzli_tpu_torch.search.processor import QuantMatrixGenerator
 
@@ -102,7 +108,14 @@ def lockstep_select_quant_matrix(procs, jpgs, downsamples, best_qs, imgs):
 
     Per-image lists; `best_qs` entries are updated in place as
     Processor.select_quant_matrix updates its best_q. Returns the
-    per-image dist_ok (the serial method's return value)."""
+    per-image dist_ok (the serial method's return value). With the quant
+    tree on for the comparators' device (config.py), the rounds are the
+    tree's waves."""
+    if config.auto("tree_quant", procs[0].comparator.device):
+        from guetzli_tpu_torch.search.quant_tree import \
+            lockstep_select_quant_matrix_tree
+        return lockstep_select_quant_matrix_tree(procs, jpgs, downsamples,
+                                                 best_qs, imgs)
     sms = [_QuantSearch(p, j, d, q, i)
            for p, j, d, q, i in zip(procs, jpgs, downsamples, best_qs, imgs)]
     while True:

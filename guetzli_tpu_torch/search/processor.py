@@ -1,20 +1,27 @@
 """The Guetzli search: quant-matrix search + frequency masking, 4:4:4 and
 4:2:0, from pixels or from a JPEG's coefficients.
 
-Port of guetzli_tpu/search/processor.py (guetzli/processor.cc), fully
-synchronous: every quant trial and every back-end iteration is one
-whole-image compare on the comparator's device, fetched before the next
-decision. The orchestration (binary search over quant matrices, the
-up/down coefficient adjustment loop, output selection) stays on the host
-as the reference keeps it:
+Port of guetzli_tpu/search/processor.py (guetzli/processor.cc). The
+orchestration (binary search over quant matrices, the up/down coefficient
+adjustment loop, output selection) stays on the host as the reference
+keeps it:
 
   * TryQuantMatrix (processor.cc:310-338) -> requantize on the host + one
-    whole-image compare per candidate matrix;
+    whole-image compare per candidate matrix; or the trials of the next
+    three search steps as batched compares that requantize on the device
+    (search/quant_tree.py), or one-deep speculation;
   * ComputeBlockZeroingOrder loop (:376-487, :643-671) -> one greedy
     zeroing kernel over all blocks (search/zeroing.py): one pass for
     4:4:4, a Y pass and a chroma pass for 4:2:0;
   * the back-end up/down loop (:723-919) -> host loop with a device
-    compare + block weights per iteration and native C++ flips.
+    compare + block weights per iteration and native C++ flips; the
+    coefficients may stay on the device, updated by each iteration's
+    flipped coefficients, and the fetches may run a lag behind.
+
+The route knobs (config.py: tree_quant, speculate, sparse, pipeline_lag)
+choose among these; each way gives the serial loop's bytes, except a
+pipeline lag of 2 or more, which builds an iteration's order from older
+weights.
 """
 
 import ctypes
@@ -96,6 +103,19 @@ class ProcessStats:
                 " ".join("%2d" % q[c, y * 8 + x] for x in range(8))
                 for c in range(3))
             sys.stderr.write("  " + row + "\n")
+
+
+def _backend_pipeline_lag(comparator):
+    """The back end's pipeline depth (JAX processor._backend_pipeline_lag).
+
+    Lag N >= 1 builds iteration k's candidate order from the weights of
+    compare k-N, fetched on a prefetch thread, instead of waiting for
+    compare k-1. At lag 1 the join comes before the next order is built,
+    so the decisions and bytes are lag 0's; lag >= 2 uses older weights
+    and moves the bytes within the band. Every iteration's output is
+    still MaybeOutput-scored with its own distance. GUETZLI_TPU_PIPELINE,
+    else config.auto per device."""
+    return config.auto("pipeline_lag", comparator.device)
 
 
 def compare_quant_matrices(a, b):
@@ -185,6 +205,13 @@ class QuantMatrixGenerator:
             if not retry:
                 return q
         return None
+
+    def clone(self):
+        g = QuantMatrixGenerator(self.downsample)
+        g.hscore_a = self.hscore_a
+        g.hscore_b = self.hscore_b
+        g.quants = list(self.quants)
+        return g
 
     def add(self, q, dist_ok):
         self.quants.append((q.copy(), dist_ok))
@@ -288,7 +315,22 @@ class Processor:
 
     def select_quant_matrix(self, jpg_in, downsample, best_q,
                             img: st.CoeffImage):
-        """SelectQuantMatrix (processor.cc:340-372)."""
+        """SelectQuantMatrix (processor.cc:340-372), by one of three
+        routes with the serial loop's trials, logs and outputs
+        (config.py): the tree's waves (search/quant_tree.py), one-deep
+        speculation (while a trial's compare is in flight, the successor
+        for each outcome is dispatched; the discarded branch is never
+        fetched or logged), or the serial loop (try_quant_matrix)."""
+        dev = self.comparator.device
+        if (config.auto("tree_quant", dev)
+                and self.comparator.supports_quant_batch()):
+            from guetzli_tpu_torch.search.quant_tree import \
+                select_quant_matrix_tree
+            return select_quant_matrix_tree(self, jpg_in, downsample,
+                                            best_q, img)
+        if config.auto("speculate", dev):
+            return self._select_quant_matrix_speculative(jpg_in, downsample,
+                                                         best_q, img)
         qgen = QuantMatrixGenerator(downsample)
         target_mul_high = 0.97
         target_mul_low = 0.95
@@ -309,6 +351,53 @@ class Processor:
                 if dist_ok and not self.comparator.distance_ok(
                         target_mul_low):
                     break
+        best_q[:] = best[0]
+        return best[1]
+
+    def _select_quant_matrix_speculative(self, jpg_in, downsample, best_q,
+                                         img):
+        """The serial loop with one-deep speculation (JAX processor.py
+        :356-411): while a trial's compare is in flight, the successor
+        for each of its outcomes is requantized, dispatched and
+        serialized; the branch not taken is never fetched or logged."""
+        qgen = QuantMatrixGenerator(downsample)
+        target_mul_high = 0.97
+        target_mul_low = 0.95
+        cur_q = best_q.copy()
+        cur = self._quant_eval_start(jpg_in, cur_q)
+        initial = True
+        best = None
+        while True:
+            spec = {}
+            for outcome in ((True,) if initial else (True, False)):
+                g2 = qgen.clone()
+                if not initial:
+                    g2.add(cur_q, outcome)
+                qn = g2.get_next()
+                if qn is not None:
+                    spec[outcome] = (g2, qn,
+                                     self._quant_eval_start(jpg_in, qn))
+            if initial and True in spec:
+                # The initial trial is not added to the generator: both
+                # outcomes share one successor.
+                spec[False] = spec[True]
+            dist_ok, size = self._quant_resolve(jpg_in, cur_q, *cur, img,
+                                                target_mul_high)
+            if initial:
+                best = (cur_q.copy(), dist_ok, size)
+                initial = False
+            else:
+                qgen.add(cur_q, dist_ok)
+                if ((dist_ok and not best[1])
+                        or (dist_ok == best[1] and size < best[2])):
+                    best = (cur_q.copy(), dist_ok, size)
+                    if dist_ok and not self.comparator.distance_ok(
+                            target_mul_low):
+                        break
+            branch = spec.get(dist_ok)
+            if branch is None:
+                break
+            qgen, cur_q, cur = branch
         best_q[:] = best[0]
         return best[1]
 
@@ -386,10 +475,15 @@ class Processor:
     def select_frequency_back_end(self, jpg, img: st.CoeffImage, comp_mask,
                                   target_mul, stop_early,
                                   offsets, cand_idx, cand_err):
-        """Drive back_end_steps synchronously: fetch each yielded compare
-        before the next iteration."""
+        """Drive back_end_steps: serially (fetch each yielded compare
+        before the next iteration) or, at a pipeline lag, through the
+        prefetch thread's start/join protocol."""
+        lag = _backend_pipeline_lag(self.comparator)
         gen = self.back_end_steps(jpg, img, comp_mask, target_mul,
-                                  stop_early, offsets, cand_idx, cand_err)
+                                  stop_early, offsets, cand_idx, cand_err,
+                                  pipelined=lag)
+        if lag:
+            return self._drive_back_end_pipelined(gen, lag)
         result = None
         while True:
             try:
@@ -402,12 +496,77 @@ class Processor:
                     lambda: self.comparator.replay(pending),
                     self.comparator.fetch_compare, pending)
 
+    def _drive_back_end_pipelined(self, gen, lag):
+        """Drive the pipelined back_end_steps protocol (JAX
+        processor._drive_back_end_pipelined).
+
+        On ("start", pending): fetch the dispatched compare on a prefetch
+        thread (Comparator.fetch_compare_pure, which changes nothing) so
+        the wait overlaps the next iteration's host work. On ("join",):
+        deliver the oldest fetch, applying the distance and distmap here
+        on the main thread. The joins sit at fixed points of the
+        generator, so the decisions do not depend on the fetches' timing.
+        A recoverable error in a fetch replays that compare from the
+        current host state (runtime.py)."""
+        import collections
+        from concurrent.futures import ThreadPoolExecutor
+
+        comp = self.comparator
+        inflight = collections.deque()
+        ex = ThreadPoolExecutor(max_workers=max(1, lag))
+        try:
+            msg = next(gen)
+            while True:
+                if msg[0] == "start":
+                    pending = msg[1]
+                    inflight.append(
+                        (ex.submit(comp.fetch_compare_pure, pending),
+                         pending))
+                    msg = gen.send(None)
+                    continue
+                fut, pending = inflight.popleft()
+                with self.stats.timed("backend_fetch"):
+                    try:
+                        d, w4, dmap = fut.result()
+                        comp.distance = d
+                        comp.distmap = dmap
+                        result = (d, w4)
+                    except runtime.RECOVERABLE:
+                        runtime.release_memory(comp.device,
+                                               "a pipelined fetch")
+                        comp.recover_device_state()
+                        result = self._recoverable(
+                            lambda: comp.replay(pending), comp.fetch_compare)
+                msg = gen.send(result)
+        except StopIteration:
+            return
+        finally:
+            ex.shutdown(wait=True)
+
     def back_end_steps(self, jpg, img: st.CoeffImage, comp_mask,
                        target_mul, stop_early,
-                       offsets, cand_idx, cand_err):
+                       offsets, cand_idx, cand_err, pipelined=0):
         """SelectFrequencyBackEnd (processor.cc:723-919) as a generator:
         yields each iteration's dispatched compare and receives its
-        (distance, weights4) via send()."""
+        (distance, weights4) via send(). The serial driver fetches at
+        once; the lockstep corpus driver advances every image to its
+        yield and fetches all compares in one copy.
+
+        pipelined=N (_drive_back_end_pipelined) switches the protocol:
+        after each dispatch the generator yields ("start", pending) and
+        goes on; with N compares in flight it yields ("join",) to receive
+        the oldest one's (distance, weights4). Iteration k's order is then
+        built from compare k-N's weights; each output is still scored
+        with its own distance at its join. The pipeline drains at the
+        direction switch, so the fresh weights there read the current
+        distmap, as the serial loop does.
+
+        With config.sparse the image's coefficients stay on the device
+        (Comparator.backend_sync_full) and each iteration ships only its
+        flipped coefficients: the native flip loop's triplets, or, after
+        the Python flip loop, triplets rebuilt from the last_indexes
+        deltas."""
+        import collections
         ncomp = len(jpg.components)
         last_c = comp_mask.bit_length() - 1
         grid = img.comps[last_c]
@@ -447,9 +606,32 @@ class Processor:
         first_up_iter = True
         cached_weights = None
         limit = self.comparator.block_error_limit()
+        clamped_off = np.clip(offsets[:nb], 0, max(len(cand_err) - 1, 0))
+        use_sparse = (config.auto("sparse", self.comparator.device)
+                      and self.comparator.supports_sparse(img, comp_mask))
+        if use_sparse:
+            self.comparator.backend_sync_full(img)
+
+        inflight = collections.deque()   # (direction, encoded) per start
+
+        def join(msg=("join",)):
+            """Receive the oldest compare in flight and score its
+            output."""
+            nonlocal cached_weights
+            d, w4 = yield msg
+            dirw, enc = inflight.popleft()
+            cached_weights = (dirw, w4)
+            self.stats.log(" BA[100.00%%] D[%6.4f]", d)
+            self.maybe_output(enc)
 
         for direction in (1, -1):
+            # The direction switch drains the pipeline, so the distmap
+            # and the best output are current before fresh weights.
+            while inflight:
+                yield from join()
             while True:
+                while pipelined and len(inflight) >= pipelined:
+                    yield from join()
                 if stop_early and direction == -1:
                     if prev_size > 1.01 * len(self.final.jpeg_data):
                         break
@@ -495,8 +677,8 @@ class Processor:
                         (est_jpg_size, changed_coeffs, val_threshold,
                          n_changed_blocks, ac_depths,
                          ac_histogram_size, flip_triplets) = flips
-                        changed = np.unique(
-                            flip_triplets[0].astype(np.int64))
+                        bs, slots, vals = flip_triplets
+                        changed = np.unique(bs.astype(np.int64))
                     else:
                         (est_jpg_size, changed_coeffs, val_threshold,
                          n_changed_blocks, ac_depths, ac_histogram_size) = \
@@ -508,6 +690,10 @@ class Processor:
                                 dc_size, ac_histograms, ac_depths,
                                 ac_histogram_size)
                         changed = np.nonzero(last_indexes != li_before)[0]
+                        if use_sparse:
+                            bs, slots, vals = _flip_triplets(
+                                img, changed, li_before, last_indexes,
+                                clamped_off, cand_idx)
                 max_block_error += (np.asarray(block_weight)
                                     * val_threshold * direction)
 
@@ -516,8 +702,15 @@ class Processor:
                 self.stats.inc("iters_up" if direction > 0
                                else "iters_down")
                 with self.stats.timed("backend_dispatch"):
-                    pending = self.comparator.dispatch_compare_with_weights(
-                        img, direction, target_mul, factor, factor)
+                    if use_sparse:
+                        pending = self.comparator \
+                            .dispatch_compare_sparse_coeffs(
+                                img, bs, slots, vals, direction,
+                                target_mul, factor, factor)
+                    else:
+                        pending = self.comparator \
+                            .dispatch_compare_with_weights(
+                                img, direction, target_mul, factor, factor)
                 with self.stats.timed("backend_serialize"):
                     if not can_collapse:
                         img.update_jpeg_data(jpg_out, changed,
@@ -538,11 +731,15 @@ class Processor:
                     len(order_blocks), n_changed_blocks,
                     blocks_to_change, nb, val_threshold, len(encoded),
                     100.0 - (100.0 * est_jpg_size) / len(encoded))
-                d, w4 = yield pending
-                cached_weights = (direction, w4)
-                self.stats.log(" BA[100.00%%] D[%6.4f]", d)
-                self.maybe_output(encoded)
+                inflight.append((direction, encoded))
+                if pipelined:
+                    yield ("start", pending)
+                else:
+                    yield from join(pending)
                 prev_size = est_jpg_size
+        # The end of both directions: score the outputs still in flight.
+        while inflight:
+            yield from join()
 
     def _global_order(self, direction, first_up_iter, cached_weights,
                       target_mul, factor, offsets, cand_err, last_indexes,
@@ -808,6 +1005,27 @@ class Processor:
                     ymul = 1.0 if len(jpg.components) == 1 else 0.97
                     self.select_frequency_masking(jpg, img, 1, ymul, False)
                     self.select_frequency_masking(jpg, img, 6, 1.0, True)
+
+
+def _flip_triplets(img, changed, li_before, last_indexes, clamped_off,
+                   cand_idx):
+    """The Python flip loop's flips as (block, c*64+k, new value)
+    triplets, rebuilt from the last_indexes deltas with the values read
+    from the post-flip host image (JAX processor.py:984-1004): what the
+    native loop emits itself, for the sparse dispatch."""
+    lo = np.minimum(li_before, last_indexes)[changed]
+    cnt = np.maximum(li_before, last_indexes)[changed] - lo
+    tot = int(cnt.sum())
+    bs = np.repeat(changed, cnt)
+    within = (np.arange(tot, dtype=np.int64)
+              - np.repeat(np.cumsum(cnt) - cnt, cnt))
+    slots = cand_idx[np.repeat(clamped_off[changed] + lo, cnt) + within]
+    vals = np.empty(tot, np.int32)
+    for c in range(3):
+        m = (slots >> 6) == c
+        if m.any():
+            vals[m] = img.comps[c].coeffs[bs[m], slots[m] & 63]
+    return bs, slots, vals
 
 
 def _frame_type_str(img) -> str:
