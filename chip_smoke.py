@@ -45,14 +45,15 @@ counts set to 0 just before it and read just after:
     photo_mosaic1.png and photo_mosaic1-420.jpg: a quant wave of each size
     of Comparator.quant_batch_sizes() against as many single compares of
     the same matrices, bit for bit, with its wall and peak device memory
-    per trial and pixel; the wave at photo_mosaic1 tiled 2x2 (5.24 MPix);
+    per trial and pixel; the wave at photo_mosaic1 tiled 2x2 (5.24 MPix),
+    exact and on its bucket;
     a seeded wave of sparse coefficient deltas, whole and in chunks,
     against a full compare of the same host image (distance and weights
     bit for bit); then both mosaics encoded with every route knob off,
     with the auto defaults and with each knob forced on alone, in turns
-    over ROUTE_ROUNDS rounds, each giving the default path's bytes, with
-    the select_quant_matrix, backend_dispatch, backend_fetch and back_end
-    walls and their medians;
+    over ROUTE_ROUNDS rounds (2 since the padded phase came, 3 before),
+    each giving the default path's bytes, with the select_quant_matrix,
+    backend_dispatch, backend_fetch and back_end walls and their medians;
   * the corpus path, with the quant tree: ``corpus_cli.main`` with 6
     threads over six images (three PNGs, three 4:2:0 JPEGs), each output
     equal to its serial encode_bytes bytes and within 2% of golden, with
@@ -60,14 +61,36 @@ counts set to 0 just before it and read just after:
     corpus (one per masking pass), and the lockstep encoder on one thread
     giving the same bytes. It logs the corpus wall, images/min, MPix/s,
     the sum of the serial walls, the phase walls, the CTAs of each
-    launch, and the peak device memory and RSS.
+    launch, and the peak device memory and RSS. It runs the default
+    route, whose geometry (config.auto("pad")) is the serial encodes';
+  * the padded bucket geometry and the CompareBatcher: a padded compare
+    of each mosaic against the exact one (ms, the diffmap at the valid
+    pixels); one stacked compare of the 10 images of bucket 128x96 (PNGs
+    at 4:4:4, their -420.jpg twins at 4:2:0) against their 10 single
+    padded compares (every row's score, diffmap and weights bit for bit;
+    ms; CUDA launches and top-level aten ops from torch.profiler); B, B'
+    and B'' on the bucket block grids of the mosaics against the exact
+    grids at the same state (CSR after real_index bit for bit, ms each);
+    phase_e2e's five encodes with the padding forced on (golden band,
+    distance at or below target, every greedy kernel and compare
+    launched), then both mosaics with the padding on and off in turns,
+    the paired walls behind config.CUDA_AUTO["pad"]; and three corpora
+    through the lockstep corpus driver, padding on and off in turns,
+    medians of 2: the 17 images of buckets 128x96 and 160x128 as 4:2:0
+    JPEGs (auto route) and as PNGs (sparse off), and the corpus phase's
+    six images of different sizes (auto route), with the compares
+    through the batcher and the rows per stacked compare, the padded
+    corpus's bytes equal to each image's serial padded encode, and one
+    launch of each greedy kernel and compare of its passes in the first
+    padded run of each corpus.
 
 Every phase that fails makes the script exit nonzero. The last two lines
 of standard output are the kernels' JSON record and {"ok": true,
 "device": {...}}.
 
 Without a CUDA device, or outside the repository, it exits nonzero and
-prints no result.
+prints no result. ``python3 chip_smoke.py padded`` builds the kernels and
+runs the padded phase alone (no result lines).
 """
 
 import contextlib
@@ -107,6 +130,13 @@ CORPUS = [("tests/corpus/photo_mosaic1.png", 393811),
           ("tests/corpus/bees_d-420.jpg", 1681)]
 CORPUS_THREADS = 6
 
+# The padded phase's two buckets of tests/corpus/ (PNGs and their -420.jpg
+# twins): 128x96 and 160x128.
+BUCKET_128x96 = ["bees_g", "bees_j", "grad1", "noise0", "noise1",
+                 "plasma3", "silver0", "silver1", "text0", "text1"]
+BUCKET_160x128 = ["bees_a", "bees_b", "bees_f", "bees_h", "bees_up",
+                  "grad3", "stripes1"]
+
 # The route phase: the JAX package's accelerator search route (quant-tree
 # waves, quant speculation, sparse back-end deltas, the back-end
 # pipeline) on the two mosaics. Each encode runs with every route knob
@@ -118,7 +148,7 @@ ROUTE_KNOBS = ("TREE_QUANT", "SPECULATE", "SPARSE", "PIPELINE")
 ROUTE_CONFIGS = ([("off", dict.fromkeys(ROUTE_KNOBS, "0")), ("auto", {})]
                  + [(k.lower(), dict(dict.fromkeys(ROUTE_KNOBS, "0"),
                                      **{k: "1"})) for k in ROUTE_KNOBS])
-ROUTE_ROUNDS = 3
+ROUTE_ROUNDS = 2
 # Seed and size of the route phase's sparse delta wave.
 SPARSE_SEED = 9
 SPARSE_FLIPS = 20000
@@ -954,9 +984,10 @@ def _route_env(env):
                 os.environ[k] = v
 
 
-def _quant_start(path, dev, tile=1):
-    """A comparator and the quant search's base image for `path` (tiled
-    tile x tile), its downsample flag and its input matrix."""
+def _quant_start(path, dev, tile=1, padded=None):
+    """A comparator (padded as `padded` says, None: the default) and the
+    quant search's base image for `path` (tiled tile x tile), its
+    downsample flag and its input matrix."""
     from guetzli_tpu_torch.codec import reader
     from guetzli_tpu_torch.codec.encoder import encode_rgb_to_jpeg
     from guetzli_tpu_torch.comparator import Comparator
@@ -974,7 +1005,7 @@ def _quant_start(path, dev, tile=1):
             rgb = np.ascontiguousarray(np.tile(rgb, (tile, tile, 1)))
             w, h = tile * w, tile * h
         jpg_in = encode_rgb_to_jpeg(rgb, w, h)
-    comp = Comparator(rgb, w, h, target(), dev)
+    comp = Comparator(rgb, w, h, target(), dev, padded=padded)
     jpg = _copy_jpeg(jpg_in)
     q_in = st.remove_original_quantization(jpg)
     return comp, st.CoeffImage.from_jpeg(jpg), jpg_in.is_420(), q_in
@@ -1043,19 +1074,27 @@ def route_waves(dev):
 
 
 def route_wave_large(dev):
-    """The wave at the 5.24 MPix of memory_envelope's tiled input: the
-    size quant_batch_sizes() gives there must run."""
-    comp, img, ds, q_in = _quant_start(ROUTE[0][0], dev, tile=2)
-    sizes = comp.quant_batch_sizes()
-    qs = _subtree(ds, q_in, sizes[-1])
-    base = comp.quant_base_upload(img)
-    _scores, ms, peak = _wave(comp, base, qs)
-    log("route wave photo_mosaic1 tiled 2x2 (%dx%d): sizes %s, B=%d: "
-        "%.2f ms, peak %.1f MiB above the resident state (%.0f B per trial "
-        "and pixel), card total %.1f MiB"
-        % (comp.width, comp.height, sizes, len(qs), ms, peak / 2**20,
-           peak / len(qs) / (comp.width * comp.height),
-           torch.cuda.get_device_properties(0).total_memory / 2**20))
+    """The wave at the 5.24 MPix of memory_envelope's tiled input, at the
+    exact geometry and on its bucket: the size quant_batch_sizes() gives
+    there must run."""
+    for padded in (False, True):
+        comp, img, ds, q_in = _quant_start(ROUTE[0][0], dev, tile=2,
+                                           padded=padded)
+        sizes = comp.quant_batch_sizes()
+        qs = _subtree(ds, q_in, sizes[-1])
+        base = comp.quant_base_upload(img)
+        _scores, ms, peak = _wave(comp, base, qs)
+        npix = (comp.geom.wp * comp.geom.hp if padded
+                else comp.width * comp.height)
+        log("route wave photo_mosaic1 tiled 2x2 (%dx%d, %s): sizes %s, "
+            "B=%d: %.2f ms, peak %.1f MiB above the resident state (%.0f B "
+            "per trial and pixel), card total %.1f MiB"
+            % (comp.width, comp.height, "bucket %dx%d" % (
+                comp.geom.wp, comp.geom.hp) if padded else "exact", sizes,
+               len(qs), ms, peak / 2**20, peak / len(qs) / npix,
+               torch.cuda.get_device_properties(0).total_memory / 2**20))
+        del comp, img, base
+        torch.cuda.empty_cache()
 
 
 def route_sparse(dev):
@@ -1177,7 +1216,373 @@ def _trial_bytes():
     return Comparator._QUANT_TRIAL_BYTES_PER_PIXEL
 
 
-def main():
+def _pad_env(value):
+    """GUETZLI_TPU_PAD set to `value` for the block (None: unset)."""
+    return _env({"GUETZLI_TPU_PAD": value})
+
+
+@contextlib.contextmanager
+def _env(env):
+    """Environment variables set as `env` says (None: unset) for the
+    block."""
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _profile_counts(fn):
+    """(CUDA kernel launches, top-level aten ops) of fn(), counted from a
+    torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    launches = sum(1 for e in events if e.name in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cuLaunchKernelEx"))
+    aten = sum(1 for e in events if e.name.startswith("aten::") and (
+        e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
+    return launches, aten
+
+
+def padded_single(dev):
+    """One compare of each mosaic on its bucket against the exact
+    geometry: ms each and the diffmap's largest relative difference at
+    valid pixels."""
+    for path, _golden in ROUTE:
+        comps = {}
+        for padded in (False, True):
+            comp, img, _ds, _q = _quant_start(path, dev, padded=padded)
+            comps[padded] = comp
+            ms = time_cuda(lambda: comp.compare_img(img), 5)
+            log("padded single %s, %s geometry (%dx%d%s): %.3f ms a "
+                "compare (median of 5), distance %.6f"
+                % (path, "bucket" if padded else "exact", comp.width,
+                   comp.height, ", bucket %dx%d" % (comp.geom.wp,
+                                                    comp.geom.hp)
+                   if padded else "", ms, comp.distance))
+        h, w = comps[False].height, comps[False].width
+        ex = comps[False].distmap
+        pd = comps[True].distmap
+        diff = (pd[:h, :w] - ex).abs()
+        rel = float((diff / ex.abs().clamp_min(1e-3)).max())
+        close = bool((diff <= 1e-6 + 1e-5 * ex.abs()).all())
+        outside = float(torch.cat([pd[h:].reshape(-1),
+                                   pd[:, w:].reshape(-1)]).abs().max())
+        log("padded single %s: diffmap at valid pixels: max abs "
+            "difference %.3g, max relative %.3g (where the exact value is "
+            ">= 1e-3), within rtol 1e-5 atol 1e-6: %s; max abs outside %.3g;"
+            " distances %.6f / %.6f"
+            % (path, float(diff.max()), rel, close, outside,
+               comps[True].distance, comps[False].distance))
+        if not close or outside != 0.0:
+            raise RuntimeError("%s: the padded diffmap differs" % path)
+
+
+def padded_stacked(dev):
+    """One stacked compare of the 10 images of the 128x96 bucket, as PNGs
+    (4:4:4, up, factor 1) and as 4:2:0 JPEGs (down, factor 2), against
+    their single padded compares: rows bit for bit, ms, launches."""
+    from guetzli_tpu_torch import comparator as cmp_mod
+    for suffix, args in ((".png", (1, 1.0, 1, 1)),
+                         ("-420.jpg", (-1, 1.0, 2, 2))):
+        items = [_quant_start("tests/corpus/%s%s" % (n, suffix), dev,
+                              padded=True) for n in BUCKET_128x96]
+        comps = [c for c, _i, _d, _q in items]
+        imgs = [i for _c, i, _d, _q in items]
+        buckets = {(c.geom.wp, c.geom.hp) for c in comps}
+        if buckets != {(128, 96)}:
+            raise RuntimeError("buckets %s" % buckets)
+
+        def singles():
+            for c in comps:
+                c.batcher = None
+            return [c.fetch_compare(c.dispatch_compare_with_weights(m, *args))
+                    + (c.distmap,) for c, m in zip(comps, imgs)]
+
+        def stacked():
+            b = cmp_mod.CompareBatcher()
+            for c in comps:
+                c.batcher = b
+            hs = [c.dispatch_compare_with_weights(m, *args)
+                  for c, m in zip(comps, imgs)]
+            out = cmp_mod.fetch_compare_many(comps, hs)
+            for c in comps:
+                c.batcher = None
+            return [o + (c.distmap,) for o, c in zip(out, comps)], b
+
+        one = singles()
+        many, b = stacked()
+        same = [a[0] == s[0] and np.array_equal(a[1], s[1])
+                and torch.equal(a[2], s[2]) for a, s in zip(many, one)]
+        single_ms = [time_cuda(lambda c=c, m=m: c.fetch_compare(
+            c.dispatch_compare_with_weights(m, *args)), 3)
+            for c, m in zip(comps, imgs)]
+        stacked_ms = time_cuda(stacked, 3)
+        l1, a1 = _profile_counts(singles)
+        ln, an = _profile_counts(stacked)
+        log("padded stacked %s x%d (bucket 128x96, direction %d, factor "
+            "%d): one stacked compare %.3f ms (median of 3; %d rows in %d "
+            "flush) against %.3f ms for the %d single padded compares "
+            "(%.3f ms each); CUDA launches %d against %d, top-level aten "
+            "ops %d against %d; every row's score, diffmap and weights "
+            "equal its single compare bit for bit: %s"
+            % (suffix, len(comps), args[0], args[2], stacked_ms, b.rows,
+               b.flushes, sum(single_ms), len(comps), np.mean(single_ms),
+               ln, l1, an,
+               a1, all(same)))
+        if not all(same) or b.flushes != 1:
+            raise RuntimeError("stacked %s rows differ from their single "
+                               "compares: %s" % (suffix, same))
+
+
+def _bucket_state(path, mask, dev):
+    """(mode, blocks, orig, aux, real_index) of a zeroing pass on the
+    bucket grid of `path`'s padded comparator, at the file's own
+    quantization (as mosaic444 and mosaic420 build the exact grid's)."""
+    from guetzli_tpu_torch.codec import reader
+    from guetzli_tpu_torch.codec.encoder import encode_rgb_to_jpeg
+    from guetzli_tpu_torch.comparator import Comparator
+    from guetzli_tpu_torch.io.png import read_png
+    from guetzli_tpu_torch.search import state as st
+    from guetzli_tpu_torch.search.processor import (Params, Processor,
+                                                    decode_jpeg_to_rgb)
+    data = (REPO / path).read_bytes()
+    if data[:2] == b"\xff\xd8":
+        jpg = reader.read_jpeg(data)
+        rgb, w, h = decode_jpeg_to_rgb(jpg), jpg.width, jpg.height
+    else:
+        rgb, w, h = read_png(data)
+        jpg = encode_rgb_to_jpeg(rgb, w, h)
+    proc = Processor(Params(), Comparator(rgb, w, h, target(), dev,
+                                          padded=True), None)
+    st.remove_original_quantization(jpg)
+    img = st.CoeffImage.from_jpeg(jpg)
+    grid = img.comps[mask.bit_length() - 1]
+    blocks, orig, real = proc.padded_masking_inputs(
+        *proc.masking_inputs(jpg, img, mask), grid)
+    mode, aux = proc.masking_aux(img, mask, grid)
+    return mode, blocks, orig, aux, real
+
+
+def padded_greedy(dev, records):
+    """B, B' and B'' on the bucket grid against the exact grid at the same
+    state (the bucket state's real rows): CSR after real_index bit for
+    bit, the padded rows without candidates, no NaN on a real row; the
+    kernel's ms on each grid (added to its JSON record as bucket_ms and
+    exact_grid_ms)."""
+    from guetzli_tpu_torch.kernels import zeroing_loop as zl
+    from guetzli_tpu_torch.search import zeroing
+    limit = np.float32(target())
+    for path, mask in ((ROUTE[0][0], 7), (ROUTE[1][0], 1),
+                       (ROUTE[1][0], 6)):
+        mode, blocks, orig, aux, real = _bucket_state(path, mask, dev)
+        real_t = torch.as_tensor(real, device=dev)
+        aux_r = tuple(a[real_t] for a in aux)
+        padded = zeroing.compute_zeroing_csr(blocks, orig, limit, aux, mask,
+                                             dev, mode=mode, real_index=real)
+        exact = zeroing.compute_zeroing_csr(blocks[real], orig[real], limit,
+                                            aux_r, mask, dev, mode=mode)
+        same = all(np.array_equal(a, b) for a, b in zip(padded, exact))
+        finite = bool(np.isfinite(padded[2]).all())
+        args_p, perm, _inv, _l = zeroing.loop_inputs(blocks, orig, limit,
+                                                     aux, mask, dev, mode)
+        args_e = zeroing.loop_inputs(blocks[real], orig[real], limit, aux_r,
+                                     mask, dev, mode)[0]
+        pad_rows = np.setdiff1d(np.arange(len(blocks)), real)
+        lane_of = np.argsort(perm)
+        nrem_pad = int(args_p[2][torch.as_tensor(lane_of[pad_rows],
+                                                 device=dev)].abs().sum()) \
+            if len(pad_rows) else 0
+        _k_idx, k_err = zl.zeroing_loop(*args_p, mode=mode)
+        real_lanes = torch.as_tensor(lane_of[real], device=dev)
+        nan_real = bool(torch.isnan(k_err[:, real_lanes]).any())
+        ms_p = time_cuda(lambda: zl.zeroing_loop(*args_p, mode=mode), 3)
+        ms_e = time_cuda(lambda: zl.zeroing_loop(*args_e, mode=mode), 3)
+        name = zl.ENTRY[mode]
+        log("padded greedy %s (%s, mode %s): bucket grid %d rows (%d real) "
+            "%.3f ms, exact grid %.3f ms (median of 3); CSR after "
+            "real_index equal to the exact grid's bit for bit: %s (%d "
+            "candidates, finite %s); padded rows' candidates %d; NaN on a "
+            "real row: %s"
+            % (name, path, mode, len(blocks), len(real), ms_p, ms_e, same,
+               len(padded[1]), finite, nrem_pad, nan_real))
+        if not same or not finite or nrem_pad or nan_real:
+            raise RuntimeError("%s on the bucket grid differs" % name)
+        for rec in records:
+            if rec["name"] == name:
+                rec.update(bucket_ms=ms_p, exact_grid_ms=ms_e,
+                           bucket_rows=len(blocks), real_rows=len(real))
+
+
+def padded_encodes(dev, outputs):
+    """The five golden rows of phase_e2e with the padded geometry forced
+    on: bytes within 2% of golden, distance at or below the target, every
+    greedy kernel and compare of the 4:4:4 and 4:2:0 paths launched. Then
+    both mosaics in turns with the padding on and off (medians of 2 each,
+    with phase_e2e's own run): the walls behind config.CUDA_AUTO["pad"].
+    Returns {path: bytes} of the padded encodes."""
+    from guetzli_tpu_torch.kernels import tile_compare as kc
+    from guetzli_tpu_torch.search.processor import ProcessStats
+    _reset_launches()
+    out_pad, walls = {}, {p: {"on": [], "off": []} for p, _g in ROUTE}
+    first = {}
+    for path, golden in E2E:
+        stats = ProcessStats()
+        with _pad_env("1"):
+            out, wall = _serial_encode(path, dev, stats)
+        out_pad[path] = out
+        if path in walls:
+            walls[path]["on"].append((wall, stats.timings))
+        log("padded encode %s: %.2f s, %d bytes (golden %d, %+.2f%%; "
+            "exact geometry %d), distance %.4f"
+            % (path, wall, len(out), golden,
+               100.0 * (len(out) - golden) / golden, len(outputs[path]),
+               stats.final_distance))
+        _check_golden(path, out, golden)
+        if stats.search_error is not None or not (
+                stats.final_distance <= target()):
+            raise RuntimeError("%s padded: distance %s, error %s"
+                               % (path, stats.final_distance,
+                                  stats.search_error))
+    launches = _launch_counts()
+    launches.pop(kc.ENTRY)
+    log("padded encodes' launches: %s"
+        % ", ".join("%s %d" % kv for kv in launches.items()))
+    if min(launches.values()) == 0:
+        raise RuntimeError("a kernel was not launched on the padded "
+                           "encodes: %s" % launches)
+    for value in ("0", "1", "0"):
+        for path, _g in ROUTE:
+            stats = ProcessStats()
+            with _pad_env(value):
+                out, wall = _serial_encode(path, dev, stats)
+            key = "on" if value == "1" else "off"
+            walls[path][key].append((wall, stats.timings))
+            want = first.setdefault((value, path), out_pad[path]
+                                    if value == "1" else out)
+            if out != want:
+                raise RuntimeError("%s: pad %s gives other bytes on a "
+                                   "second run" % (path, value))
+            log("padded paired %s, pad %s: %.2f s, %d bytes (the default "
+                "path's %d)" % (path, value, wall, len(out),
+                                len(outputs[path])))
+    for path, _g in ROUTE:
+        for key in ("off", "on"):
+            rs = walls[path][key]
+            log("padded paired %s, pad %s: walls %s s, median %.3f s; "
+                "select_quant_matrix median %.3f s, back_end median %.3f s"
+                % (path, key, ", ".join("%.3f" % w for w, _t in rs),
+                   float(np.median([w for w, _t in rs])),
+                   float(np.median([t.get("select_quant_matrix", 0)
+                                    for _w, t in rs])),
+                   float(np.median([t.get("back_end", 0) for _w, t in rs]))))
+    return out_pad
+
+
+def padded_corpus(dev, known):
+    """The lockstep corpus driver with the padding on (the CompareBatcher)
+    and off, in turns, medians of 2, on three corpora: the 17 images of
+    buckets 128x96 and 160x128 as 4:2:0 JPEGs under the card's auto
+    route and as PNGs with GUETZLI_TPU_SPARSE=0 (small images that share
+    buckets, the batcher's traffic), and CORPUS under the auto route
+    (images of different sizes, one per bucket and kind). The padded
+    corpus's bytes must equal each image's serial padded encode (`known`:
+    those phase_e2e's rows already gave under the auto route), and its
+    first run must launch each greedy kernel and compare of its passes
+    once for the whole corpus."""
+    from guetzli_tpu_torch.kernels import tile_compare as kc
+    from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
+    from guetzli_tpu_torch.kernels import zeroing_loop as zl
+    from guetzli_tpu_torch.parallel.lockstep import encode_corpus_lockstep
+    names = BUCKET_128x96 + BUCKET_160x128
+    corpora = [
+        ("-420.jpg x%d" % len(names),
+         ["tests/corpus/%s-420.jpg" % n for n in names], {}),
+        (".png x%d" % len(names),
+         ["tests/corpus/%s.png" % n for n in names],
+         {"GUETZLI_TPU_SPARSE": "0"}),
+        ("mixed x%d" % len(CORPUS), [p for p, _g in CORPUS], {})]
+    for label, paths, env in corpora:
+        items = [(p, (REPO / p).read_bytes()) for p in paths]
+        modes = set()
+        for p in paths:
+            modes.update(("420y", "420c") if "-420" in p else ("444",))
+        want = {e[m]: int(m in modes) for m in MODES
+                for e in (ka.ENTRY, zl.ENTRY)}
+        want[kc.ENTRY] = 0
+        serial, serial_walls = {}, []
+        with _env(dict(env, GUETZLI_TPU_PAD="1")):
+            for p in paths:
+                if not env and p in known:
+                    serial[p] = known[p]
+                    continue
+                serial[p], wall = _serial_encode(p, dev)
+                serial_walls.append(wall)
+        runs = {"1": [], "0": []}
+        for value in ("1", "0", "0", "1"):
+            walls, counters = {}, {}
+            _reset_launches()
+            with _env(dict(env, GUETZLI_TPU_PAD=value)):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                res = encode_corpus_lockstep(
+                    items, quality=QUALITY, threads=CORPUS_THREADS,
+                    phase_walls=walls, device=dev, counters=counters)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            launches = _launch_counts()
+            runs[value].append(wall)
+            log("padded corpus %s, pad %s: %.2f s (phase walls %s); "
+                "compares %d, through the batcher %d in %d stacked "
+                "compares (%.2f rows each); launches %s"
+                % (label, value, wall,
+                   ", ".join("%s %.2f s" % kv for kv in sorted(walls.items())),
+                   counters.get("compares", 0), counters.get("batched", 0),
+                   counters.get("flushes", 0),
+                   counters.get("batched", 0) / max(1, counters.get(
+                       "flushes", 0)),
+                   ", ".join("%s %d" % kv for kv in launches.items())))
+            if value == "1":
+                bad = [p for p, d in res if d != serial[p]]
+                if bad:
+                    raise RuntimeError("padded corpus bytes differ from the "
+                                       "serial padded encodes: %s" % bad)
+                if len(runs["1"]) == 1 and launches != want:
+                    raise RuntimeError(
+                        "the padded corpus %s must launch each greedy "
+                        "kernel and compare of its passes once: %s, want %s"
+                        % (label, launches, want))
+        on, off = float(np.median(runs["1"])), float(np.median(runs["0"]))
+        log("padded corpus %s: pad on median %.3f s, off median %.3f s "
+            "(on/off %.3f); serial padded encodes sum %.2f s (%d encoded "
+            "here); corpus bytes equal the serial padded bytes: True"
+            % (label, on, off, on / off, sum(serial_walls),
+               len(serial_walls)))
+
+
+def phase_padded(dev, outputs, records):
+    """The padded bucket geometry and the CompareBatcher."""
+    padded_single(dev)
+    padded_stacked(dev)
+    padded_greedy(dev, records)
+    padded_corpus(dev, padded_encodes(dev, outputs))
+
+
+def main(argv=()):
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
         return 1
@@ -1185,6 +1590,11 @@ def main():
     from guetzli_tpu_torch.kernels import build
     dev = resolve("cuda")
     phase_device(build)
+    if list(argv) == ["padded"]:
+        # The padded phase alone, against default-path encodes of E2E.
+        phase_padded(dev, {p: _serial_encode(p, dev)[0] for p, _g in E2E},
+                     [])
+        return 0
     records = []
     for states in (mosaic444(dev), mosaic420(dev)):
         for mode, state in states.items():
@@ -1200,8 +1610,11 @@ def main():
                                 + phase_444p_e2e(dev, outputs))
     phase_butteraugli(dev)
     phase_route(dev, outputs)
+    # The corpus phase runs the default route (config.auto("pad") is the
+    # serial encodes' geometry too); the padded corpus is phase_padded's.
     with _route_env({"TREE_QUANT": "1"}):
         corpus_launches = phase_corpus(dev, outputs, walls)
+    phase_padded(dev, outputs, records)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         rec["corpus_launches"] = corpus_launches.get(rec["name"], 0)
@@ -1213,4 +1626,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

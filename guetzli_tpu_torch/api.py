@@ -68,7 +68,8 @@ def encode_corpus(inputs, quality: float = 95, params: Params = None,
     geometry is encoded alone before the others start. A failed image is
     recorded as None after a message on stderr and the corpus goes on,
     unless the error is sticky (runtime.is_sticky): the device is lost
-    and the error propagates.
+    and the error propagates. With threads > 1 the encodes issue their
+    compares from several threads at once (ROADMAP.md section 3).
     Runs on the CUDA device unless `device` says otherwise ("cpu").
     Returns [(name, jpeg_bytes or None, seconds)] in input order."""
     dev = resolve(device)

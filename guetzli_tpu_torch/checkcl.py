@@ -197,7 +197,7 @@ def run_checkcl(rgb, w, h, device="cuda") -> int:
     # Every block of the image, from the exact-geometry Comparator: the
     # candidates and the block state have the same row count.
     cand = torch.as_tensor(_blocks(_quant3_jpeg(rgb, w, h)), device=dev)
-    comp = Comparator(rgb, w, h, 1.0, dev)
+    comp = Comparator(rgb, w, h, 1.0, dev, padded=False)
     comp.start_block_comparisons()
     xyb0_tiles, scales, ysel, xsel = comp.block_state(1, 1)
     xyb0_tiles = xyb0_tiles.contiguous()

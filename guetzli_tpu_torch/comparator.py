@@ -1,8 +1,9 @@
 """Butteraugli comparator: the metric side of the search, 4:4:4 and 4:2:0.
 
-Port of guetzli_tpu/comparator.py (guetzli/butteraugli_comparator.{h,cc})
-at exact image geometry. A Comparator computes the original image's opsin
-once and keeps it on its device, and offers:
+Port of guetzli_tpu/comparator.py (guetzli/butteraugli_comparator.{h,cc}),
+at the image's exact geometry or on its padded bucket (ops/padgeom.py,
+config.pad). A Comparator computes the original image's opsin once and
+keeps it on its device, and offers:
 
   * the whole-image compare (ButteraugliComparator::Compare, :60-70) and
     the fused compare + block weights of the back-end loop, of a 4:4:4 or
@@ -10,7 +11,8 @@ once and keeps it on its device, and offers:
   * the frozen per-block state of the zeroing passes (StartBlockComparisons
     :72-79 and SwitchBlock :85-111, hoisted out of the loop), with the
     4:2:0 passes' frozen chroma bytes, Y bytes, chroma neighborhoods and
-    macroblock children.
+    macroblock children; on a bucket, every per-block array has the
+    bucket's block grid, its padded rows zero.
 
 It also offers the JAX package's accelerator search route:
 
@@ -21,7 +23,10 @@ It also offers the JAX package's accelerator search route:
     per-coefficient deltas instead of whole-plane uploads
     (backend_sync_full, dispatch_compare_sparse_coeffs);
   * fetch_compare_pure, the side-effect-free fetch of the pipelined back
-    end's prefetch thread.
+    end's prefetch thread;
+  * on a bucket, CompareBatcher: the lockstep corpus driver's compares
+    of different images of one bucket run as one stacked compare, each
+    row bit for bit its image's single padded compare.
 
 PyTorch runs eagerly and CUDA work is queued asynchronously, so the
 dispatch_* / fetch_* pairs keep the JAX package's structure: a dispatch
@@ -34,12 +39,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from guetzli_tpu_torch import consts
+from guetzli_tpu_torch import config, consts, runtime
 from guetzli_tpu_torch.ops import diffmap as dm
 from guetzli_tpu_torch.ops import image as img_ops
 from guetzli_tpu_torch.ops import tiles as tile_ops
 from guetzli_tpu_torch.ops import upsample as us
-from guetzli_tpu_torch.ops.opsin import opsin_dynamics_image
+from guetzli_tpu_torch.ops.opsin import (opsin_dynamics_image,
+                                         opsin_dynamics_image_dyn)
+from guetzli_tpu_torch.ops.padgeom import PadGeom, split_scales
 
 _F32 = np.float32
 
@@ -152,20 +159,302 @@ def _gather_block_scales(mask_xyz, ys, xs):
     return mask_xyz[:, ys, xs].T.contiguous()
 
 
+# -- padded bucket geometry (JAX comparator.py:134-330) ----------------------
+#
+# The cores take B images of one bucket stacked on an image axis: each row
+# has its own coefficients, original opsin xyb0 [3, B, Hp, Wp], true size
+# w, h [B], border scales sc (ops/padgeom.split_scales) and targets tgt
+# [B, 3] float32 (t, 1.1 t, 0.5 t, the weights' thresholds rounded on the
+# host as JAX rounds them). A single padded compare is the stack of one.
+
+def _targets(ts):
+    """float32 [B, 3] rows (t, 1.1 t, 0.5 t) of the targets `ts`."""
+    t = np.asarray(ts, np.float32)
+    return np.stack([t, _F32(1.1) * t, _F32(0.5) * t], axis=-1)
+
+
+def _compare_dyn(kind, coeffs, xyb0, w, h, sc, wp, hp):
+    """(scores [B], diffmaps [B, Hp, Wp]) of B padded images: `coeffs` is
+    [3, B, NBp, 64] for "444", the (y, u, v) planes [B, NB*, 64] on the
+    bucket's luma and chroma grids for "420"."""
+    if kind == "444":
+        lin = img_ops.coeffs_to_linear_rgb(coeffs, wp // 8, hp // 8, wp, hp,
+                                           trial_axis=1)
+    else:
+        srgb = img_ops.coeffs420_to_srgb_dyn(*coeffs, wp // 8, hp // 8,
+                                             wp // 16, hp // 16, wp, hp, w, h)
+        lin = img_ops.srgb_to_linear(srgb, 1)
+    xyb1 = opsin_dynamics_image_dyn(lin, w, h, sc)
+    dmap = dm.diffmap_opsin_dynamics_dyn(xyb0, xyb1, w, h, sc)
+    return dm.score_from_diffmap(dmap), dmap
+
+
+def _dilate_max_rows(x):
+    """3x3 max with -inf outside, of each image of [B, H, W]."""
+    return F.max_pool2d(x[:, None], 3, stride=1, padding=1)[:, 0]
+
+
+def _weights_all_radii_dyn(dmap, tgt, sizex, sizey, direction_pos):
+    """_weights_all_radii_impl of B padded diffmaps [B, Hp, Wp] with
+    their own targets tgt [B, 3] -> [B, 4, GBHp, GBWp] on the bucket's
+    block grid. Padded blocks have a max distance of 0 where the exact
+    grid has none; the distances are >= 0, so no real block's weight
+    changes (JAX _weights_all_radii_impl on the bucket)."""
+    max_dist = F.max_pool2d(dmap[:, None], (sizey, sizex))[:, 0]
+    t, t11, t05 = (tgt[:, i, None, None] for i in range(3))
+    weights = []
+    local = max_dist
+    if direction_pos:
+        for _ in range(4):
+            local = _dilate_max_rows(local)
+            ml = torch.maximum(local, t)
+            weights.append(((max_dist <= t) & (ml <= t11)).float())
+    else:
+        for r in range(1, 5):
+            local = _dilate_max_rows(local)
+            ml = torch.maximum(local, t)
+            src = max_dist > (t05 + 0.5 * ml)
+            w_r = torch.zeros_like(max_dist)
+            reach = src.float()
+            for d in range(r + 1):
+                w_r = torch.maximum(w_r, reach * float(_F32(1.0 / (d + 1))))
+                if d < r:
+                    reach = _dilate_max_rows(reach)
+            weights.append(w_r)
+    return torch.stack(weights, 1)
+
+
+def _cw444_dyn_core(coeffs, xyb0, tgt, w, h, sc, wp, hp, sizex, sizey,
+                    direction_pos):
+    """The fused padded compare + weights of B 4:4:4 images ->
+    (scores [B], diffmaps [B, Hp, Wp], weights [B, 4, GBHp, GBWp])."""
+    score, dmap = _compare_dyn("444", coeffs, xyb0, w, h, sc, wp, hp)
+    return score, dmap, _weights_all_radii_dyn(dmap, tgt, sizex, sizey,
+                                               direction_pos)
+
+
+def _cw420_dyn_core(y, u, v, xyb0, tgt, w, h, sc, wp, hp, sizex, sizey,
+                    direction_pos):
+    """The 4:2:0 counterpart: (y [B, NBp, 64], u, v [B, NBCp, 64])."""
+    score, dmap = _compare_dyn("420", (y, u, v), xyb0, w, h, sc, wp, hp)
+    return score, dmap, _weights_all_radii_dyn(dmap, tgt, sizex, sizey,
+                                               direction_pos)
+
+
+def _quant_scores_444_dyn(base, qs, xyb0, w, h, sc, wp, hp):
+    """B requantizations of a padded 4:4:4 base [3, NBp, 64] -> scores
+    [B], each that of a single padded compare bit for bit (JAX
+    _quant_batch_444_dyn); xyb0 [3, 1, Hp, Wp], w, h, sc of one image,
+    broadcast over the trials."""
+    b = qs.shape[0]
+    coeffs = _device_quantize(base[:, None], qs.transpose(0, 1)[:, :, None])
+    return _compare_dyn("444", coeffs, *_broadcast_rows(b, xyb0, w, h, sc),
+                        wp, hp)[0]
+
+
+def _quant_scores_420_dyn(ybase, ubase, vbase, qs, xyb0, w, h, sc, wp, hp):
+    """The 4:2:0 counterpart (JAX _quant_batch_420_dyn)."""
+    planes = tuple(_device_quantize(p[None], qs[:, c, None])
+                   for c, p in enumerate((ybase, ubase, vbase)))
+    return _compare_dyn("420", planes,
+                        *_broadcast_rows(qs.shape[0], xyb0, w, h, sc),
+                        wp, hp)[0]
+
+
+def _broadcast_rows(b, xyb0, w, h, sc):
+    """One image's row state repeated for b trials (views)."""
+    return (xyb0.expand(-1, b, -1, -1), w.expand(b), h.expand(b),
+            {k: (sx.expand(b, -1), sy.expand(b, -1))
+             for k, (sx, sy) in sc.items()})
+
+
+def _pad_rows_dev(a, real, nbp):
+    """Rows of `a` [NB, ...] placed at rows `real` (an int64 index on a's
+    device) of a zero [nbp, ...] array: pad_blocks on the device (JAX
+    _pad_rows_dev)."""
+    out = a.new_zeros((nbp,) + tuple(a.shape[1:]))
+    return out.index_copy_(0, real, a)
+
+
+class CompareBatcher:
+    """One stacked compare for the compares of several Comparators of one
+    bucket (JAX comparator.py:357-427).
+
+    The lockstep corpus driver (parallel/lockstep.py) gives every padded
+    comparator of a corpus the same batcher. Their whole-image compares
+    (the first compare, the quant rounds without the tree, the back end's
+    plain dispatches) then only enqueue a request; the first read of a
+    result flushes the queue: requests are grouped by kind ("444" or
+    "420") and the bucket's statics (Wp, Hp, the weight grid and the
+    direction), and each group runs once through the padded core with a
+    leading image axis, each row with its own coefficients, original,
+    size, target and border scales. Every row equals its image's single
+    padded compare bit for bit (ops/diffmap.py's padded section).
+
+    JAX pads each group's batch axis to a power of two to bound XLA's
+    compiles; PyTorch compiles nothing, so a group is exactly its rows.
+    Requests may come from any thread (the corpus back end's pool only
+    enqueues); a flush runs on the thread that reads, and nothing in it
+    waits for the device. An out-of-memory error in a flush replays the
+    same stack (runtime.py); if it persists, every row of the group
+    raises it when read, and each owner's recovery replays its own
+    request alone. It never falls back to unbatched compares."""
+
+    def __init__(self):
+        import threading
+        self._lock = threading.Lock()
+        self._queue = []
+        self._ready = {}
+        self._next = 0
+        self.rows = 0        # requests run in stacks
+        self.flushes = 0     # stacked compares run
+
+    def enqueue(self, comp, kind, key, coeffs, target, grid):
+        """Queue a compare of `comp`: coeffs are its padded numpy planes
+        ([3, NBp, 64] for "444", the (y, u, v) planes for "420"), key =
+        (sizex, sizey, direction_pos), target the float weights target,
+        grid the real weight grid (gbw, gbh). Returns the request's id."""
+        g = comp.geom
+        with self._lock:
+            idx = self._next
+            self._next += 1
+            self._queue.append((idx, comp, (kind, g.wp, g.hp) + key,
+                                coeffs, target, grid))
+            return idx
+
+    def result(self, idx):
+        """(score, diffmap [Hp, Wp], weights [4, gbh*gbw]) of request
+        `idx`, device tensors; flushes the queue if it is not ready."""
+        with self._lock:
+            if idx not in self._ready:
+                self._flush_locked()
+            out = self._ready.pop(idx)
+        if isinstance(out, BaseException):
+            raise out
+        return out
+
+    def _flush_locked(self):
+        groups = {}
+        for item in self._queue:
+            groups.setdefault(item[2], []).append(item)
+        self._queue = []
+        pending = list(groups.items())
+        while pending:
+            key, items = pending.pop(0)
+            try:
+                outs = self._run_group(key, items)
+            except BaseException as e:
+                # Any other error: every request not run raises it.
+                for _k, rest in [(key, items)] + pending:
+                    for item in rest:
+                        self._ready[item[0]] = e
+                raise
+            for item, out in zip(items, outs):
+                self._ready[item[0]] = out
+            self.flushes += 1
+            self.rows += len(items)
+
+    @staticmethod
+    def _run_group(key, items):
+        """_run_stack with the runtime's replay of the same stack; a
+        persistent out-of-memory error becomes every row's result."""
+        for attempt in range(runtime.ATTEMPTS):
+            try:
+                return _run_stack(key, items)
+            except runtime.RECOVERABLE as e:
+                if attempt == runtime.ATTEMPTS - 1:
+                    return [e] * len(items)
+                runtime.release_memory(items[0][1].device,
+                                       "a batched compare")
+
+
+def _run_stack(key, items):
+    """One group of CompareBatcher requests through the padded core:
+    [(score, diffmap, real-grid weights)] in the items' order."""
+    kind, wp, hp, sizex, sizey, direction_pos = key
+    comps = [it[1] for it in items]
+    dev = comps[0].device
+
+    def up(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    xyb0 = torch.stack([c.xyb0 for c in comps], 1)
+    w = up(np.array([c.width for c in comps], np.int64))
+    h = up(np.array([c.height for c in comps], np.int64))
+    sc = split_scales(torch.stack([c._sc_flat for c in comps]), wp, hp)
+    tgt = up(_targets([it[4] for it in items]))
+    if kind == "444":
+        score, dmap, w4 = _cw444_dyn_core(
+            up(np.stack([it[3] for it in items], 1)), xyb0, tgt, w, h, sc,
+            wp, hp, sizex, sizey, direction_pos)
+    else:
+        planes = [up(np.stack([it[3][c] for it in items])) for c in range(3)]
+        score, dmap, w4 = _cw420_dyn_core(*planes, xyb0, tgt, w, h, sc, wp,
+                                          hp, sizex, sizey, direction_pos)
+    return [(score[j], dmap[j], _real_weights(w4[j], *it[5]))
+            for j, it in enumerate(items)]
+
+
+def _real_weights(w4, gbw, gbh):
+    """[4, GBHp, GBWp] bucket-grid weights -> [4, gbh*gbw] of the real
+    grid (JAX _unpad_w4, on the device)."""
+    return w4[:, :gbh, :gbw].reshape(4, gbh * gbw)
+
+
+class DeferredCompare:
+    """A compare whose device work runs when it is read, on the reading
+    thread: a request on a CompareBatcher, or a comparator's direct
+    dispatch deferred (Comparator.batcher). `args` is what
+    Comparator.replay needs (None for a plain compare)."""
+
+    def __init__(self, run, args):
+        self._run = run
+        self.args = args
+
+    def resolve(self):
+        """The handle as a direct dispatch gives it: (score, diffmap,
+        weights, args)."""
+        return self._run() + (self.args,)
+
+
+def _resolved(handle):
+    return handle.resolve() if isinstance(handle, DeferredCompare) \
+        else handle
+
+
 class Comparator:
     """Per-image butteraugli comparator with device-resident state.
 
     rgb: uint8 [h, w, 3] (numpy); device: a torch.device. ``xyb0`` may be
-    passed in (interop.py) instead of computed from rgb."""
+    passed in (interop.py) instead of computed from rgb (exact geometry
+    only). ``padded`` puts the image on its bucket (ops/padgeom.py):
+    None reads config.auto("pad", device). On a bucket, xyb0 and the
+    distmaps are [.., Hp, Wp], zero or garbage outside the image, and
+    the per-block state has the bucket's block grid.
+
+    ``batcher`` (a CompareBatcher, set by the lockstep corpus driver) makes
+    a padded comparator's dispatch_compare and
+    dispatch_compare_with_weights enqueue their compare there. With a
+    batcher set, the device work of every back-end dispatch (the
+    batcher's stacks, an exact comparator's compares, the sparse
+    dispatches of the resident state) runs when the handle is read, on
+    the reading thread: the corpus's pool threads that advance the back
+    ends issue none of it."""
 
     def __init__(self, rgb, width, height, target_distance, device,
-                 xyb0=None):
+                 xyb0=None, padded=None):
         self.width = width
         self.height = height
         self.target_distance = float(target_distance)
         self.device = torch.device(device)
         self.rgb_orig = np.asarray(rgb, dtype=np.uint8).reshape(
             height, width, 3)
+        if padded is None:
+            padded = xyb0 is None and config.auto("pad", self.device)
+        self.geom = PadGeom(width, height) if padded else None
+        self.batcher = None
+        # Whole-image compares dispatched (a wave counts its trials).
+        self.compares = 0
         self.xyb0 = self._original_opsin() if xyb0 is None else xyb0
         self.distance = 0.0
         self.distmap = None
@@ -183,11 +472,42 @@ class Comparator:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
     def _original_opsin(self):
+        """The original's opsin [3, H, W], or [3, Hp, Wp] on a bucket
+        (then also the image's row state: _w, _h, _sc_flat)."""
         lut = consts.SRGB_TO_LINEAR.astype(np.float32)
-        lin0 = torch.as_tensor(
-            np.ascontiguousarray(lut[self.rgb_orig].transpose(2, 0, 1)),
-            device=self.device)
-        return opsin_dynamics_image(lin0)
+        lin0 = lut[self.rgb_orig].transpose(2, 0, 1)
+        if self.geom is None:
+            return opsin_dynamics_image(self._up(lin0))
+        g = self.geom
+        self._w = self._up(np.array([g.w], np.int64))
+        self._h = self._up(np.array([g.h], np.int64))
+        self._sc_flat = self._up(g.scales_flat())
+        return opsin_dynamics_image_dyn(self._up(g.pad_plane(lin0))[:, None],
+                                        self._w, self._h, self._sc())[:, 0]
+
+    def _sc(self):
+        """This image's border scales as one row (split_scales)."""
+        return split_scales(self._sc_flat[None], self.geom.wp, self.geom.hp)
+
+    def _row(self):
+        """(xyb0 [3, 1, Hp, Wp], w, h, sc): this image as a stack of one."""
+        return self.xyb0[:, None], self._w, self._h, self._sc()
+
+    def _pad(self, comp, gbwp, gbhp):
+        """A component's coefficients [NB, 64] on a padded grid."""
+        return self.geom.pad_blocks(comp.coeffs, comp.bw, comp.bh, gbwp,
+                                    gbhp)
+
+    def _padded_planes(self, img):
+        """The image's coefficients on the bucket's grids (numpy): [3, NBp,
+        64] for 4:4:4, the (y, u, v) planes for 4:2:0."""
+        g = self.geom
+        if img.is_444():
+            return g.pad_blocks(img.coeffs, img.bw, img.bh)
+        y, u, v = img.comps
+        return (self._pad(y, g.bwp, g.bhp), self._pad(u, g.wp // 16,
+                                                      g.hp // 16),
+                self._pad(v, g.wp // 16, g.hp // 16))
 
     def recover_device_state(self):
         """Rebuild the device state after a recoverable error (runtime.py):
@@ -207,7 +527,22 @@ class Comparator:
 
     def dispatch_compare(self, img):
         """Queue a whole-image compare of a CoeffImage (4:4:4 or 4:2:0);
-        fetch_compare_plain completes it."""
+        fetch_compare_plain completes it. With a batcher the compare is
+        the fused compare + unit-target weights of its bucket group, as
+        in the JAX package."""
+        self.compares += 1
+        if self.geom is not None:
+            if self.batcher is not None:
+                return self._enqueue(img, 1, 1.0, 1, 1, None)
+            planes = self._padded_planes(img)
+            if img.is_444():
+                coeffs = self._up(planes)[:, None]
+            else:
+                coeffs = tuple(self._up(p)[None] for p in planes)
+            score, dmap = _compare_dyn("444" if img.is_444() else "420",
+                                       coeffs, *self._row(), self.geom.wp,
+                                       self.geom.hp)
+            return score[0], dmap[0]
         if img.is_444():
             return _full_compare(self._up(img.coeffs), self.xyb0, img.bw,
                                  img.bh, self.width, self.height)
@@ -217,9 +552,9 @@ class Comparator:
                                  u.bw, u.bh, self.width, self.height)
 
     def fetch_compare_plain(self, handle):
-        score, dmap = handle
-        self.distance = float(score)
-        self.distmap = dmap
+        handle = _resolved(handle)
+        self.distance = float(handle[0])
+        self.distmap = handle[1]
         return self.distance
 
     def compare_img(self, img):
@@ -230,14 +565,20 @@ class Comparator:
     def supports_quant_batch(self):
         """True. The JAX package ties its waves to padded bucket geometry
         because XLA compiles one program per bucket and batch size; the
-        port runs its eager chain at the image's exact geometry with any
-        number of trials, so every comparator takes them."""
+        port runs its eager chain with any number of trials at either
+        geometry, so every comparator takes them (a padded one on its
+        bucket, with or without a batcher: waves are per image)."""
         return True
 
     def quant_base_upload(self, img):
         """Put the quant search's base (the dequantized input coefficients
-        every trial requantizes) on the device: an opaque handle for
-        dispatch_quant_batch."""
+        every trial requantizes) on the device, on the bucket's grids if
+        padded: an opaque handle for dispatch_quant_batch."""
+        if self.geom is not None:
+            kind = "444" if img.is_444() else "420"
+            planes = self._padded_planes(img)
+            return (kind, (self._up(planes),) if kind == "444"
+                    else tuple(self._up(p) for p in planes), None)
         if img.is_444():
             return "444", (self._up(img.coeffs),), (img.bw, img.bh)
         y, u, v = img.comps
@@ -246,12 +587,13 @@ class Comparator:
 
     # JAX's wave sizes: the tree's waves hold at most the largest.
     _QUANT_BATCH_SIZES = (4, 8)
-    # Device bytes per image pixel one trial of a wave adds at its peak,
-    # rounded up from the largest measured: 888-899 B on the two mosaics
-    # (4:4:4 and 4:2:0, waves of 4 and 8) and 957 B at photo_mosaic1
-    # tiled 2x2 (5.24 MPix), on an NVIDIA H100 80GB HBM3 at 700 W
-    # (chip_smoke.py's route phase; PERF.md).
-    _QUANT_TRIAL_BYTES_PER_PIXEL = 1024
+    # Device bytes per image (or bucket) pixel one trial of a wave adds at
+    # its peak, rounded up from the largest measured: 888-899 B on the two
+    # mosaics (4:4:4 and 4:2:0, waves of 4 and 8), 900-957 B at
+    # photo_mosaic1 tiled 2x2 (5.24 MPix) and 1,070 B per bucket pixel
+    # there on its bucket (2944x1920), on an NVIDIA H100 80GB HBM3 at
+    # 700 W (chip_smoke.py's route phase; PERF.md).
+    _QUANT_TRIAL_BYTES_PER_PIXEL = 1152
     # The share of the card's free memory a wave may take.
     _QUANT_WAVE_MEMORY_SHARE = 0.5
 
@@ -259,13 +601,15 @@ class Comparator:
         """The wave sizes this image may use: JAX's (4, 8) where a wave
         fits in half of the card's free memory (the allocator's cached
         blocks count as free) at the measured bytes per trial, else the
-        number that fits, at least 1. The CPU takes (4, 8)."""
+        number that fits, at least 1; on a bucket the pixels are the
+        bucket's. The CPU takes (4, 8)."""
         if self.device.type != "cuda":
             return self._QUANT_BATCH_SIZES
         free, _total = torch.cuda.mem_get_info(self.device)
         free += (torch.cuda.memory_reserved(self.device)
                  - torch.cuda.memory_allocated(self.device))
-        per_trial = (self.width * self.height
+        g = self.geom
+        per_trial = ((g.wp * g.hp if g else self.width * self.height)
                      * self._QUANT_TRIAL_BYTES_PER_PIXEL)
         cap = max(1, int(free * self._QUANT_WAVE_MEMORY_SHARE // per_trial))
         sizes = tuple(s for s in self._QUANT_BATCH_SIZES if s <= cap)
@@ -278,7 +622,13 @@ class Comparator:
         cache)."""
         q = self._up(np.stack([np.asarray(x, np.int32).reshape(3, 64)
                                for x in qs]))
+        self.compares += len(qs)
         kind, planes, grid = base
+        if self.geom is not None:
+            fn = _quant_scores_444_dyn if kind == "444" \
+                else _quant_scores_420_dyn
+            return fn(*planes, q, *self._row(), self.geom.wp,
+                      self.geom.hp), len(qs)
         fn = _quant_scores_444 if kind == "444" else _quant_scores_420
         scores = fn(*planes, q, self.xyb0, *grid, self.width, self.height)
         return scores, len(qs)
@@ -309,7 +659,11 @@ class Comparator:
     # -- per-block comparison state -------------------------------------
 
     def start_block_comparisons(self):
-        self._mask_xyz = dm.mask(self.xyb0, self.xyb0)[0]
+        if self.geom is None:
+            self._mask_xyz = dm.mask(self.xyb0, self.xyb0)[0]
+            return
+        x, w, h, sc = self._row()
+        self._mask_xyz = dm.mask_dyn(x, x, w, h, sc)[0][:, 0]
 
     def finish_block_comparisons(self):
         self._mask_xyz = None
@@ -318,7 +672,8 @@ class Comparator:
     def block_state(self, factor_x, factor_y):
         """(xyb0_tiles [NB, 3, 64] f32, scales [NB, 3] f32, ysel [NB, 8]
         int32, xsel [NB, 8] int32) on the device, for the 8x8 pixel blocks
-        of the full-resolution image (row-major)."""
+        of the full-resolution image (row-major). On a bucket NB is the
+        bucket's block grid, the padded rows zero."""
         key = (factor_x, factor_y)
         if key not in self._block_state:
             if self._mask_xyz is None:
@@ -334,52 +689,87 @@ class Comparator:
                 self._mask_xyz, torch.as_tensor(8 * by, device=self.device),
                 torch.as_tensor(8 * bx, device=self.device))
             ysel, xsel = tile_ops.edge_gather_indices(bw, bh, w, h)
-            self._block_state[key] = (
-                xyb0_tiles, scales,
-                torch.as_tensor(ysel, device=self.device),
-                torch.as_tensor(xsel, device=self.device))
+            if self.geom is not None:
+                g = self.geom
+                real = self._up(g.real_index(bw, bh, g.bwp))
+                nbp = g.bwp * g.bhp
+                xyb0_tiles = _pad_rows_dev(xyb0_tiles, real, nbp)
+                scales = _pad_rows_dev(scales, real, nbp)
+                ysel, xsel = g.pad_blocks(ysel), g.pad_blocks(xsel)
+            self._block_state[key] = (xyb0_tiles, scales, self._up(ysel),
+                                      self._up(xsel))
         return self._block_state[key]
+
+    def _pad_grid(self, a, gbw, gbh, gbwp, gbhp):
+        """A per-block device array [gbh*gbw, ...] on the padded grid
+        (gbwp x gbhp); unchanged at exact geometry."""
+        if self.geom is None:
+            return a
+        return _pad_rows_dev(a, self._up(self.geom.real_index(gbw, gbh,
+                                                              gbwp)),
+                             gbwp * gbhp)
 
     # -- 4:2:0 per-block evaluation state ---------------------------------
 
     def frozen_chroma_blocks(self, img):
         """[NBy, 2, 8, 8] int32 frozen Cb/Cr bytes of each full-res 8x8
         block for the 4:2:0 Y pass, edge bytes replicated by a clamped
-        gather."""
+        gather. On a bucket the bytes come from the padded chroma planes
+        and NBy is the bucket's block grid."""
         if "chroma_bytes" in self.frozen_state:
             return self.frozen_state["chroma_bytes"]
         u, v = img.comps[1], img.comps[2]
         w, h = self.width, self.height
         bw, bh = (w + 7) // 8, (h + 7) // 8
-        planes = torch.stack([
-            img_ops.chroma_byte_plane(self._up(c.coeffs), c.bw, c.bh, w, h)
-            for c in (u, v)])                          # [2, h, w]
+        g = self.geom
+        if g is None:
+            planes = torch.stack([
+                img_ops.chroma_byte_plane(self._up(c.coeffs), c.bw, c.bh, w,
+                                          h) for c in (u, v)])   # [2, h, w]
+        else:
+            cbwp, cbhp = g.wp // 16, g.hp // 16
+            planes = img_ops.chroma_byte_plane_dyn(
+                self._up(np.stack([self._pad(c, cbwp, cbhp)
+                                   for c in (u, v)])),
+                cbwp, cbhp, g.wp, g.hp, self._w, self._h)  # [2, hp, wp]
         gx = np.minimum(np.tile(np.arange(bw), bh)[:, None] * 8
                         + np.arange(8)[None, :], w - 1)        # [NB, 8]
         gy = np.minimum(np.repeat(np.arange(bh), bw)[:, None] * 8
                         + np.arange(8)[None, :], h - 1)
         out = planes[:, self._up(gy)[:, :, None], self._up(gx)[:, None, :]]
-        return out.permute(1, 0, 2, 3).contiguous()
+        out = out.permute(1, 0, 2, 3).contiguous()
+        return out if g is None else self._pad_grid(out, bw, bh, g.bwp,
+                                                    g.bhp)
 
     def frozen_y_16x16(self, img, cbw, cbh):
         """[NBc, 16, 16] int32 frozen Y bytes of each 16x16 macroblock for
-        the 4:2:0 chroma pass (clamped gather)."""
+        the 4:2:0 chroma pass (clamped gather); on a bucket NBc is the
+        bucket's chroma grid."""
         if "y16" in self.frozen_state:
             return self.frozen_state["y16"]
         y = img.comps[0]
         w, h = self.width, self.height
+        g = self.geom
+        if g is None:
+            coeffs, grid = self._up(y.coeffs), (y.bw, y.bh, w, h)
+        else:
+            coeffs = self._up(self._pad(y, g.bwp, g.bhp))
+            grid = (g.bwp, g.bhp, g.wp, g.hp)
         plane = img_ops.byte_plane(img_ops.blocks_to_plane(
-            img_ops.idct_blocks(self._up(y.coeffs)) << 4, y.bw, y.bh, w, h))
+            img_ops.idct_blocks(coeffs) << 4, *grid))
         gx = np.minimum(np.tile(np.arange(cbw), cbh)[:, None] * 16
                         + np.arange(16)[None, :], w - 1)
         gy = np.minimum(np.repeat(np.arange(cbh), cbw)[:, None] * 16
                         + np.arange(16)[None, :], h - 1)
-        return plane[self._up(gy)[:, :, None], self._up(gx)[:, None, :]]
+        out = plane[self._up(gy)[:, :, None], self._up(gx)[:, None, :]]
+        return out if g is None else self._pad_grid(out, cbw, cbh,
+                                                    g.wp // 16, g.hp // 16)
 
     def frozen_neighborhoods(self, img):
         """(neigh_u, neigh_v): [NBc, 10, 10] int32 x16 subsampled
         neighborhoods of each macroblock's Cb and Cr for the 4:2:0 chroma
-        pass (the frame the candidate's own IDCT is written into)."""
+        pass (the frame the candidate's own IDCT is written into); on a
+        bucket NBc is the bucket's chroma grid."""
         if "neighborhoods" in self.frozen_state:
             return self.frozen_state["neighborhoods"]
         ws, hs = (img.width + 1) // 2, (img.height + 1) // 2
@@ -388,25 +778,34 @@ class Comparator:
             sub = img_ops.blocks_to_plane(
                 img_ops.idct_blocks(self._up(c.coeffs)) << 4, c.bw, c.bh,
                 ws, hs)
-            out.append(us.neighborhoods_10x10(sub, c.bw, c.bh))
+            neigh = us.neighborhoods_10x10(sub, c.bw, c.bh)
+            if self.geom is not None:
+                neigh = self._pad_grid(neigh, c.bw, c.bh, self.geom.wp // 16,
+                                       self.geom.hp // 16)
+            out.append(neigh)
         return tuple(out)
 
     def children_state(self, cbw, cbh):
         """The full-res block state gathered into [NBc, 2, 2, ...] for the
         2x2 children of each 16x16 macroblock: (xyb0_tiles, scales, ysel,
         xsel, valid [NBc, 2, 2] bool); invalid children (outside the
-        image) gather block 0."""
+        image) gather block 0. On a bucket the macroblock axis is the
+        bucket's chroma grid, the children strided over its block grid."""
         if "children" in self.frozen_state:
             return self.frozen_state["children"]
         xyb0_tiles, scales, ysel, xsel = self.block_state(1, 1)
         bw, bh = (self.width + 7) // 8, (self.height + 7) // 8
+        stride = bw
+        if self.geom is not None:
+            cbw, cbh = self.geom.wp // 16, self.geom.hp // 16
+            stride = self.geom.bwp
         cbx = np.tile(np.arange(cbw), cbh)
         cby = np.repeat(np.arange(cbh), cbw)
         ix = np.arange(2)
         child_x = cbx[:, None, None] * 2 + ix[None, None, :]   # [NBc,1,2]
         child_y = cby[:, None, None] * 2 + ix[None, :, None]   # [NBc,2,1]
         valid = (child_x < bw) & (child_y < bh)                # [NBc,2,2]
-        idx = self._up(np.where(valid, child_y * bw + child_x, 0)
+        idx = self._up(np.where(valid, child_y * stride + child_x, 0)
                        .reshape(-1))
         nbc = cbw * cbh
 
@@ -424,33 +823,59 @@ class Comparator:
         gbh = (self.height + sizey - 1) // sizey
         return sizex, sizey, gbw, gbh
 
+    def _weights(self, dmap, direction, target_mul, factor_x, factor_y):
+        """[4, NB] weights (device) of a distmap on the real grid."""
+        sizex, sizey, gbw, gbh = self._grid_dims(factor_x, factor_y)
+        target = self.target_distance * target_mul
+        if self.geom is None:
+            return _weights_all_radii_impl(dmap, _F32(target), sizex, sizey,
+                                           gbw, gbh, direction > 0)
+        w4 = _weights_all_radii_dyn(dmap[None], self._up(_targets([target])),
+                                    sizex, sizey, direction > 0)
+        return _real_weights(w4[0], gbw, gbh)
+
     def weights_all_radii(self, direction, target_mul, factor_x, factor_y):
         """[4, NB] weights for rblock radii 1..4 from the distmap of the
         last compare."""
-        sizex, sizey, gbw, gbh = self._grid_dims(factor_x, factor_y)
-        out = _weights_all_radii_impl(
-            self.distmap, _F32(self.target_distance * target_mul),
-            sizex, sizey, gbw, gbh, direction > 0)
-        return out.cpu().numpy()
+        return self._weights(self.distmap, direction, target_mul, factor_x,
+                             factor_y).cpu().numpy()
 
     def _with_weights(self, score, dmap, img, direction, target_mul,
                       factor_x, factor_y, resident):
         """A compare's handle with the next iteration's block weights:
         (score, dmap, w4, args), args being what replay() needs."""
+        return score, dmap, self._weights(
+            dmap, direction, target_mul, factor_x, factor_y), (
+                img, direction, target_mul, factor_x, factor_y, resident)
+
+    def _enqueue(self, img, direction, target_mul, factor_x, factor_y,
+                 args):
+        """Put this compare on the batcher: a DeferredCompare."""
         sizex, sizey, gbw, gbh = self._grid_dims(factor_x, factor_y)
-        w4 = _weights_all_radii_impl(
-            dmap, _F32(self.target_distance * target_mul), sizex, sizey,
-            gbw, gbh, direction > 0)
-        return score, dmap, w4, (img, direction, target_mul, factor_x,
-                                 factor_y, resident)
+        idx = self.batcher.enqueue(
+            self, "444" if img.is_444() else "420",
+            (sizex, sizey, direction > 0), self._padded_planes(img),
+            self.target_distance * target_mul, (gbw, gbh))
+        return DeferredCompare(lambda: self.batcher.result(idx), args)
 
     def dispatch_compare_with_weights(self, img, direction, target_mul,
                                       factor_x, factor_y):
         """Queue the compare + next-iteration block weights; returns a
         handle for fetch_compare() or fetch_compare_many()."""
-        score, dmap = self.dispatch_compare(img)
-        return self._with_weights(score, dmap, img, direction, target_mul,
-                                  factor_x, factor_y, False)
+        args = (img, direction, target_mul, factor_x, factor_y, False)
+        if self.batcher is not None and self.geom is not None:
+            self.compares += 1
+            return self._enqueue(img, direction, target_mul, factor_x,
+                                 factor_y, args)
+        return self._deferred(lambda: self._with_weights(
+            *self.dispatch_compare(img), *args)[:3], args)
+
+    def _deferred(self, run, args):
+        """run() -> (score, dmap, w4) now, or at the handle's read when a
+        batcher is set (the class docstring)."""
+        if self.batcher is not None:
+            return DeferredCompare(run, args)
+        return run() + (args,)
 
     def replay(self, handle):
         """Queue a handle's compare again. The image is the one the handle
@@ -459,7 +884,7 @@ class Comparator:
         result. A compare of the resident state first re-syncs it from
         that image (a recovery may have dropped it)."""
         img, direction, target_mul, factor_x, factor_y, resident = \
-            handle[3]
+            handle.args if isinstance(handle, DeferredCompare) else handle[3]
         if not resident:
             return self.dispatch_compare_with_weights(
                 img, direction, target_mul, factor_x, factor_y)
@@ -480,7 +905,7 @@ class Comparator:
         distance and distmap on the main thread at its join): (distance,
         [4, NB] weights, the device distmap), in one device-to-host
         copy."""
-        score, dmap, w4, _args = handle
+        score, dmap, w4, _args = _resolved(handle)
         flat = torch.cat([score.reshape(1), w4.reshape(-1)]).cpu().numpy()
         return float(flat[0]), flat[1:].reshape(w4.shape), dmap
 
@@ -498,14 +923,24 @@ class Comparator:
 
     def supports_sparse(self, img, comp_mask):
         """The resident state is the 4:4:4 pass's [3, NB, 64] planes (JAX
-        supports_sparse; the 4:2:0 passes upload whole planes)."""
+        supports_sparse; the 4:2:0 passes upload whole planes). Sparse
+        compares bypass a batcher: the state is the image's own."""
         return comp_mask == 7 and img.is_444()
 
     def backend_sync_full(self, img):
         """Upload the back end's coefficient state [3, NB, 64] int32 from
-        the host image; the sparse dispatches update it in place."""
-        self._dev_coeffs = self._up(img.coeffs)
+        the host image (on a bucket [3, NBp, 64]); the sparse dispatches
+        update it in place."""
+        self._dev_coeffs = self._up(img.coeffs if self.geom is None
+                                    else self._padded_planes(img))
         self._dev_grid = (img.bw, img.bh)
+
+    def _state_rows(self, blocks):
+        """Rows of the resident state of blocks on the image's grid."""
+        if self.geom is None:
+            return blocks
+        bw = self._dev_grid[0]
+        return (blocks // bw) * self.geom.bwp + blocks % bw
 
     def _scatter(self, cidx, cvals):
         """Set flat entries c*NB*64 + b*64 + k of the resident state."""
@@ -519,20 +954,23 @@ class Comparator:
         it: 12 bytes per flipped coefficient instead of the whole planes
         (JAX _scatter_coeff_compare_444_dyn, and _scatter_coeffs_only
         for the chunks of a wave above _SPARSE_COEFF_TOP)."""
-        bw, bh = self._dev_grid
         cks = np.asarray(cks, np.int64)
-        cidx = ((cks >> 6) * (bw * bh * 64)
-                + np.asarray(blocks_idx, np.int64) * 64 + (cks & 63))
+        cidx = ((cks >> 6) * (self._dev_coeffs.shape[1] * 64)
+                + self._state_rows(np.asarray(blocks_idx, np.int64)) * 64
+                + (cks & 63))
         cvals = np.asarray(vals, np.int32)
-        m, pos = len(cidx), 0
-        while m - pos > self._SPARSE_COEFF_TOP:
-            end = pos + self._SPARSE_COEFF_CHUNK
-            self._scatter(cidx[pos:end], cvals[pos:end])
-            pos = end
-        if pos < m:
-            self._scatter(cidx[pos:], cvals[pos:])
-        return self._compare_resident(img, direction, target_mul, factor_x,
-                                      factor_y)
+        args = (img, direction, target_mul, factor_x, factor_y, True)
+
+        def run():
+            m, pos = len(cidx), 0
+            while m - pos > self._SPARSE_COEFF_TOP:
+                end = pos + self._SPARSE_COEFF_CHUNK
+                self._scatter(cidx[pos:end], cvals[pos:end])
+                pos = end
+            if pos < m:
+                self._scatter(cidx[pos:], cvals[pos:])
+            return self._compare_resident(args)
+        return self._deferred(run, args)
 
     def dispatch_compare_sparse(self, img, changed, direction, target_mul,
                                 factor_x, factor_y):
@@ -540,19 +978,29 @@ class Comparator:
         `changed` (indexes on the image's grid) are written whole from the
         host image into the resident state, then compared."""
         changed = np.asarray(changed, np.int64)
-        if len(changed):
-            self._dev_coeffs[:, self._up(changed), :] = self._up(
-                np.stack([c.coeffs[changed] for c in img.comps]))
-        return self._compare_resident(img, direction, target_mul, factor_x,
-                                      factor_y)
+        args = (img, direction, target_mul, factor_x, factor_y, True)
 
-    def _compare_resident(self, img, direction, target_mul, factor_x,
-                          factor_y):
-        bw, bh = self._dev_grid
-        score, dmap = _full_compare(self._dev_coeffs, self.xyb0, bw, bh,
-                                    self.width, self.height)
-        return self._with_weights(score, dmap, img, direction, target_mul,
-                                  factor_x, factor_y, True)
+        def run():
+            if len(changed):
+                self._dev_coeffs[:, self._up(self._state_rows(changed)),
+                                 :] = self._up(np.stack(
+                                     [c.coeffs[changed] for c in img.comps]))
+            return self._compare_resident(args)
+        return self._deferred(run, args)
+
+    def _compare_resident(self, args):
+        """(score, dmap, w4) of the resident state; args as replay's."""
+        self.compares += 1
+        if self.geom is not None:
+            score, dmap = _compare_dyn("444", self._dev_coeffs[:, None],
+                                       *self._row(), self.geom.wp,
+                                       self.geom.hp)
+            score, dmap = score[0], dmap[0]
+        else:
+            bw, bh = self._dev_grid
+            score, dmap = _full_compare(self._dev_coeffs, self.xyb0, bw, bh,
+                                        self.width, self.height)
+        return self._with_weights(score, dmap, *args)[:3]
 
     def compute_block_error_adjustment_weights(
             self, direction, max_block_dist, target_mul, factor_x, factor_y,
@@ -563,7 +1011,8 @@ class Comparator:
         sizex, sizey = 8 * factor_x, 8 * factor_y
         bw = (w + sizex - 1) // sizex
         bh = (h + sizey - 1) // sizey
-        d = np.asarray(distmap, dtype=np.float32).reshape(h, w)
+        d = np.asarray(distmap, dtype=np.float32)
+        d = d[:h, :w] if d.ndim == 2 else d.reshape(h, w)
         pad = np.zeros((bh * sizey, bw * sizex), dtype=np.float32)
         pad[:h, :w] = d
         max_dist = pad.reshape(bh, sizey, bw, sizex).max(axis=(1, 3))
@@ -603,10 +1052,13 @@ class Comparator:
 def fetch_compare_many(comps, handles):
     """Complete many dispatch_compare_with_weights handles (one per
     comparator in `comps`) with ONE device-to-host copy: every score and
-    flattened w4 concatenated. Leaves each comparator as fetch_compare
-    would (distance, distmap) and returns the same [(distance, w4)]."""
+    flattened w4 concatenated. Batched handles resolve first, which
+    flushes their batcher's groups without waiting for the device. Leaves
+    each comparator as fetch_compare would (distance, distmap) and
+    returns the same [(distance, w4)]."""
     if not handles:
         return []
+    handles = [_resolved(h) for h in handles]
     flat = torch.cat([torch.cat([h[0].reshape(1), h[2].reshape(-1)])
                       for h in handles]).cpu().numpy()
     out, pos = [], 0

@@ -112,6 +112,48 @@ def blur(channel, sigma: float, border_ratio: float = 0.0,
     return out[0] if trial_axis is None else out.movedim(0, trial_axis)
 
 
+def border_scales(size: int, padded: int, sigma: float,
+                  border_ratio: float = 0.0):
+    """The border scales of an axis of real extent `size` laid into a
+    padded axis of `padded` pixels: float32 [ceil(padded / step)], the
+    real positions' normalization (_border_weights) followed by 1.0 at
+    the padded positions, which consumers mask (JAX ops/blur.py
+    border_scales)."""
+    step = blur_step(sigma)
+    real = _border_weights(size, sigma, border_ratio)
+    n_out = -(-padded // step)
+    out = np.ones(n_out, dtype=np.float32)
+    out[:len(real)] = real[:n_out]
+    return out
+
+
+def blur_dyn(channel, sigma: float, scale_x, scale_y):
+    """Blur of padded images [..., B, Hp, Wp] with each image's own border
+    scales scale_x [B, ceil(Wp / step)], scale_y [B, ceil(Hp / step)]
+    (ops/padgeom.py; JAX blur_dyn). The caller zeroes the input outside
+    each image's valid region; the result then equals the blur of the
+    image alone at its valid pixels. The convolutions run once per image
+    at the shape of a one-image blur, so an image's bits do not depend on
+    how many images are stacked beside it."""
+    lead = channel.shape[:-3]
+    nb, h, w = channel.shape[-3:]
+    taps, offset = gauss_taps(sigma)
+    step = blur_step(sigma)
+    jt = torch.as_tensor(taps, device=channel.device)
+    x = channel.movedim(-3, 0).reshape(nb, -1, w)
+    t = _conv_trials(x, jt, offset, step) * scale_x[:, None, :]
+    dw = t.shape[-1]
+    t = t.reshape((nb,) + lead + (h, dw)).transpose(-1, -2) \
+        .reshape(nb, -1, h)
+    t = _conv_trials(t, jt, offset, step) * scale_y[:, None, :]
+    dh = t.shape[-1]
+    out = t.reshape((nb,) + lead + (dw, dh)).transpose(-1, -2)
+    if step > 1:
+        out = out.repeat_interleave(step, dim=-2)[..., :h, :]
+        out = out.repeat_interleave(step, dim=-1)[..., :w]
+    return out.movedim(0, -3).contiguous()
+
+
 @lru_cache(maxsize=None)
 def blur_matrix(size: int, sigma: float, border_ratio: float = 0.0):
     """Dense [size, size] float32 matrix B with (B @ v) == blur(v) for

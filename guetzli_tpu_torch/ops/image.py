@@ -136,6 +136,28 @@ def chroma_byte_plane(coeffs, bw, bh, w, h):
     return byte_plane(us.fancy_upsample(sub, w, h))
 
 
+def chroma_byte_plane_dyn(coeffs, cbwp, cbhp, wp, hp, w, h):
+    """Padded factor-2 chroma bytes: [B, NBCp, 64] on the bucket chroma
+    grid -> [B, hp, wp], the upsample's border clamps from each image's
+    true size w, h (int tensors [B]) (JAX chroma_byte_plane_dyn)."""
+    from guetzli_tpu_torch.ops import upsample as us
+    sub = blocks_to_plane(idct_blocks(coeffs) << 4, cbwp, cbhp, wp // 2,
+                          hp // 2)
+    return byte_plane(us.fancy_upsample_dyn(sub, (w + 1) // 2,
+                                            (h + 1) // 2))
+
+
+def coeffs420_to_srgb_dyn(y_coeffs, u_coeffs, v_coeffs, ybwp, ybhp, cbwp,
+                          cbhp, wp, hp, w, h):
+    """Padded YUV420 state of B images -> [3, B, hp, wp] int32 sRGB bytes,
+    garbage outside each valid region (JAX coeffs420_to_srgb_dyn)."""
+    yb = byte_plane(blocks_to_plane(idct_blocks(y_coeffs) << 4, ybwp, ybhp,
+                                    wp, hp))
+    ub = chroma_byte_plane_dyn(u_coeffs, cbwp, cbhp, wp, hp, w, h)
+    vb = chroma_byte_plane_dyn(v_coeffs, cbwp, cbhp, wp, hp, w, h)
+    return ycbcr_to_rgb(yb, ub, vb)
+
+
 def coeffs420_to_srgb(y_coeffs, u_coeffs, v_coeffs, ybw, ybh, cbw, cbh,
                       w, h):
     """YUV420 state -> [3, H, W] int32 sRGB bytes (OutputImage::ToSRGB with

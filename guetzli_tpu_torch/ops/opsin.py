@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from guetzli_tpu_torch import consts
-from guetzli_tpu_torch.ops.blur import blur, blur_matrix
+from guetzli_tpu_torch.ops.blur import blur, blur_dyn, blur_matrix
+from guetzli_tpu_torch.ops.diffmap import _vmask
 from guetzli_tpu_torch.ops.fp import div
 
 _GAMMA_MIN = float(np.float32(consts.GAMMA_MIN_VALUE))
@@ -67,6 +68,17 @@ def opsin_dynamics_image(rgb, trial_axis=None):
     H, W] for B trials with trial_axis=1."""
     return opsin_from_blurred(
         rgb, blur(rgb, consts.OPSIN_SIGMA, 0.0, trial_axis))
+
+
+def opsin_dynamics_image_dyn(rgb, w, h, sc):
+    """Padded opsin: [3, B, Hp, Wp] linear RGB of B images with true sizes
+    w, h (int tensors [B]) and their "opsin" border scales sc (ops/
+    padgeom.py). Values outside each valid region are garbage that the
+    consumers mask (JAX opsin_dynamics_image_dyn)."""
+    hp, wp = rgb.shape[-2:]
+    blurred = blur_dyn(rgb * _vmask(hp, wp, w, h), consts.OPSIN_SIGMA,
+                       *sc["opsin"])
+    return opsin_from_blurred(rgb, blurred)
 
 
 def opsin_dynamics_blocks(rgb_blocks):

@@ -1,10 +1,10 @@
 """Fancy (libjpeg 3x3 triangle) chroma upsampling for YUV420.
 
-Port of guetzli_tpu/ops/upsample.py (exact geometry), integer and
-bit-exact. Reference semantics: OutputImageComponent::UpdatePixelsForBlock
-(output_image.cc:147-204) keeps a full-resolution x16 pixel cache for
-factor-2 components by upsampling a 10x10 subsampled neighborhood around
-each changed block. Here the cache is rebuilt from the whole subsampled
+Port of guetzli_tpu/ops/upsample.py, integer and bit-exact, at exact
+geometry and on padded buckets (fancy_upsample_dyn). Reference semantics:
+OutputImageComponent::UpdatePixelsForBlock (output_image.cc:147-204)
+keeps a full-resolution x16 pixel cache for factor-2 components by
+upsampling a 10x10 subsampled neighborhood around each changed block. Here the cache is rebuilt from the whole subsampled
 plane at once.
 """
 
@@ -31,6 +31,28 @@ def fancy_upsample(sub, w, h):
     r2 = sub[..., cy2, :]
     return (9 * r1[..., cx] + 3 * r1[..., cx2] + 3 * r2[..., cx]
             + r2[..., cx2]) >> 4
+
+
+def fancy_upsample_dyn(sub, ws, hs):
+    """fancy_upsample of B padded subsampled planes [B, hsp, wsp] with
+    true subsampled extents ws, hs (int tensors [B]) -> [B, 2*hsp, 2*wsp]
+    x16 pixels, garbage outside each valid region (JAX
+    fancy_upsample_dyn): the border clamps are per image."""
+    nb, hsp, wsp = sub.shape
+    dev = sub.device
+    x = torch.arange(2 * wsp, device=dev)
+    y = torch.arange(2 * hsp, device=dev)
+    cx = x >> 1
+    cy = y >> 1
+    cx2 = torch.minimum((cx + (x & 1) * 2 - 1).clamp(min=0)[None],
+                        ws[:, None] - 1)                    # [B, 2wsp]
+    cy2 = torch.minimum((cy + (y & 1) * 2 - 1).clamp(min=0)[None],
+                        hs[:, None] - 1)                    # [B, 2hsp]
+    r1 = sub[:, cy, :]
+    r2 = torch.gather(sub, 1, cy2[:, :, None].expand(nb, 2 * hsp, wsp))
+    ix2 = cx2[:, None, :].expand(nb, 2 * hsp, 2 * wsp)
+    return (9 * r1[..., cx] + 3 * torch.gather(r1, 2, ix2)
+            + 3 * r2[..., cx] + torch.gather(r2, 2, ix2)) >> 4
 
 
 def neighborhoods_10x10(sub, bw, bh):

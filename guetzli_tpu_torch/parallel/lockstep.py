@@ -1,10 +1,11 @@
 """The lockstep corpus encoder: every image's search in phase.
 
-Port of guetzli_tpu/parallel/lockstep.py at exact image geometry. The
-reference encodes one image per process and serializes a device round
-trip per search step. Across a corpus those steps are independent, so
-each phase runs in lockstep over every image:
+Port of guetzli_tpu/parallel/lockstep.py. The reference encodes one
+image per process and serializes a device round trip per search step.
+Across a corpus those steps are independent, so each phase runs in
+lockstep over every image:
 
+  * the first compare of every image: all queued, then all fetched;
   * the quant search in rounds: every active image's trial compare is
     queued before any is fetched (lockstep_select_quant_matrix); with the
     quant tree on (config.py), every image's subtree waves are queued
@@ -23,16 +24,28 @@ each phase runs in lockstep over every image:
 
 Each image keeps its own Processor and Comparator, and each decision
 depends only on that image's own results, so every output equals the
-serial api.encode_bytes bytes whatever the threads' interleaving. The
-custom kernels launch only from the calling thread (the zeroing call);
-the pool's threads queue PyTorch ops on the same stream. A comparator's
-resident back-end coefficients belong to its image: only that image's
-generator updates them.
+serial api.encode_bytes bytes (at the same geometry) whatever the
+threads' interleaving. Every comparator of a corpus shares one
+CompareBatcher (comparator.py), and with it the back end's dispatches,
+made on the pool's threads, only queue their compares: their device work
+runs on the calling thread when the round's combined fetch reads them,
+as do the masking passes' frozen state and the custom kernels (the
+zeroing call): cuDNN failed once on the card, not reproduced, under
+compares issued from several threads at once (PERF.md; api.encode_corpus
+with threads > 1 still issues them so, ROADMAP.md section 3). A
+comparator's resident back-end coefficients belong to its image: only
+that image's generator updates them.
 
-Left out, with the JAX package's padded bucket geometry: the
-CompareBatcher (one vmapped program per wave of same-bucket compares of
-different images). The back end is not pipelined here: a round's
-combined fetch already waits once for every image.
+With the padded geometry on (config.auto("pad"), the serial encoders'
+knob too; off by default) every comparator sits on its image's bucket
+(ops/padgeom.py): the queued whole-image compares of a round -- the
+first compares, the quant rounds without the tree, the back end's plain
+dispatches -- run as one stacked compare per bucket, each row bit for
+bit its image's single padded compare, and the zeroing call runs on
+the bucket block grids and keeps the real blocks' rows
+(_corpus_masking). The tree's waves and the sparse dispatches of a
+resident state stay per image, as in the JAX package. The back end is not pipelined here: a round's combined fetch
+already waits once for every image.
 """
 
 import sys
@@ -104,7 +117,9 @@ class _QuantSearch:
 
 def lockstep_select_quant_matrix(procs, jpgs, downsamples, best_qs, imgs):
     """Every image's quant-matrix search in lockstep rounds: each round
-    queues every active image's trial, then fetches them in corpus order.
+    queues every active image's trial, then fetches them in corpus order
+    (with a CompareBatcher on the comparators, the first fetch runs the
+    round's trials of each bucket as one stacked compare).
 
     Per-image lists; `best_qs` entries are updated in place as
     Processor.select_quant_matrix updates its best_q. Returns the
@@ -132,7 +147,7 @@ def lockstep_select_quant_matrix(procs, jpgs, downsamples, best_qs, imgs):
 def encode_corpus_lockstep(inputs, quality: float = 95,
                            force_420: bool = False, try_420: bool = False,
                            use_silver_screen: bool = False, threads: int = 1,
-                           phase_walls=None, device=None):
+                           phase_walls=None, device=None, counters=None):
     """Encode a corpus of PNG and JPEG images with the search in lockstep.
 
     inputs: (name, bytes) pairs. Each pass of the reference encoder (4:4:4,
@@ -142,7 +157,10 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
     image's blocks, then the back-end rounds. `threads` sizes the pool of
     the per-image host work. `phase_walls`, a dict, accumulates the
     seconds of "quant", "zeroing" (the per-image masking state and the
-    zeroing call) and "backend".
+    zeroing call) and "backend". `counters`, a dict, accumulates
+    "compares" (the comparators' whole-image compares, a wave's trials
+    each), "batched" (those run by the CompareBatcher) and "flushes" (its
+    stacked compares).
 
     Images under 32 pixels, JPEGs the search does not take (grayscale,
     CMYK, 4:2:2, ...) and qualities below 84 go to the serial encoder. An
@@ -164,6 +182,8 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
                                                     decode_jpeg_to_rgb)
     dev = resolve(device)
     target = consts.butteraugli_score_for_quality(quality)
+    padded = config.auto("pad", dev)
+    batcher = cmp_mod.CompareBatcher()
     inputs = list(inputs)
     results = [None] * len(inputs)
     ctxs = []
@@ -195,22 +215,33 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
             except ValueError as e:
                 sys.stderr.write("%s: %s\n" % (name, e))
             continue
-        proc = Processor(params, Comparator(rgb, w, h, target, dev),
-                         ProcessStats())
+        comp = Comparator(rgb, w, h, target, dev, padded=padded)
+        comp.batcher = batcher
+        proc = Processor(params, comp, ProcessStats())
         if jpg_in is None:
             jpg_in = encode_rgb_to_jpeg(rgb, w, h)
-        # Processor.process_jpeg_data's steps before the search.
+        # Processor.process_jpeg_data's steps before the search; the
+        # first compare is queued here and fetched below.
         encoded = proc.output_jpeg(jpg_in)
         proc.final.score = -1
         jpg0 = _copy_jpeg(jpg_in)
         q_in = st.remove_original_quantization(jpg0)
-        proc._compare(st.CoeffImage.from_jpeg(jpg0))
-        proc.maybe_output(encoded)
+        img0 = st.CoeffImage.from_jpeg(jpg0)
         ds_lo = 1 if (input_is_420 or force_420) else 0
         ds_hi = 1 if (input_is_420 or force_420
                       or (try_420 and not _is_grayscale(jpg_in))) else 0
         ctxs.append({"index": i, "proc": proc, "jpg_in": jpg_in,
-                     "q_in": q_in, "ds_lo": ds_lo, "ds_hi": ds_hi})
+                     "q_in": q_in, "ds_lo": ds_lo, "ds_hi": ds_hi,
+                     "first": (img0, encoded,
+                               comp.dispatch_compare(img0))})
+    for c in ctxs:
+        proc = c["proc"]
+        img0, encoded, pending = c.pop("first")
+        d = proc._recoverable(
+            lambda p=proc, m=img0: p.comparator.dispatch_compare(m),
+            proc.comparator.fetch_compare_plain, pending)
+        proc.stats.log(" BA[100.00%%] D[%6.4f]", d)
+        proc.maybe_output(encoded)
 
     for downsample in (0, 1):
         batch = [c for c in ctxs if c["ds_lo"] <= downsample <= c["ds_hi"]]
@@ -250,6 +281,12 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
 
     for c in ctxs:
         results[c["index"]] = c["proc"].final.jpeg_data
+    if counters is not None:
+        for key, n in (("compares", sum(c["proc"].comparator.compares
+                                        for c in ctxs)),
+                       ("batched", batcher.rows),
+                       ("flushes", batcher.flushes)):
+            counters[key] = counters.get(key, 0) + n
     return [(name, out) for (name, _data), out in zip(inputs, results)]
 
 
@@ -268,23 +305,30 @@ def _pool_map(fn, items, threads):
 
 def _corpus_masking(trip, comp_mask, target_muls, stop_early, threads=1,
                     phase_walls=None):
-    """One masking pass across the corpus: per-image inputs and frozen
-    state (on the pool), ONE zeroing call over the concatenated blocks
-    with per-block limits, then the back-end loops in lockstep rounds.
-    `trip`: (proc, jpg, img) per image. Per-block math is independent of
-    the other blocks of the launch, so every image's candidates equal
-    those of its own serial pass bit for bit."""
+    """One masking pass across the corpus: per-image inputs (on the pool)
+    and frozen state (its device work on the calling thread), ONE zeroing
+    call over the concatenated blocks with per-block limits, then the
+    back-end loops in lockstep rounds. `trip`: (proc, jpg, img) per
+    image. Per-block math is independent of the other blocks of the
+    launch, so every image's candidates equal those of its own serial
+    pass bit for bit."""
     t_zero = time.time()
 
     def prep(args):
         proc, jpg, img = args
         grid = img.comps[comp_mask.bit_length() - 1]
-        blocks, orig = proc.masking_inputs(jpg, img, comp_mask)
-        mode, aux = proc.masking_aux(img, comp_mask, grid)
-        return (blocks, orig, mode, aux,
-                np.float32(proc.comparator.block_error_limit()))
+        blocks, orig, real = proc.padded_masking_inputs(
+            *proc.masking_inputs(jpg, img, comp_mask), grid)
+        if real is None:
+            real = np.arange(len(blocks), dtype=np.int64)
+        return blocks, orig, grid, real
 
-    per = _pool_map(prep, trip, threads)
+    per = []
+    for (proc, _jpg, img), (blocks, orig, grid, real) in zip(
+            trip, _pool_map(prep, trip, threads)):
+        mode, aux = proc.masking_aux(img, comp_mask, grid)
+        per.append((blocks, orig, mode, aux,
+                    np.float32(proc.comparator.block_error_limit()), real))
     # One image can keep 4:4:4 geometry in the 4:2:0 pass (a grayscale
     # image's all-zero chroma is not downsampled): one zeroing call per
     # mode.
@@ -297,14 +341,18 @@ def _corpus_masking(trip, comp_mask, target_muls, stop_early, threads=1,
                             threads, phase_walls)
         return
     mode = modes[0]
-    counts = [len(p[0]) for p in per]
+    # Each image's rows: its blocks (on its bucket grid when padded), of
+    # which the real ones, `real`, give its rows of the CSR.
+    rows = [len(p[0]) for p in per]
+    counts = [len(p[5]) for p in per]
     cat_blocks = np.concatenate([p[0] for p in per])
     cat_orig = np.concatenate([p[1] for p in per])
     cat_aux = tuple(torch.cat([p[3][k] for p in per])
                     for k in range(len(per[0][3])))
     limits = np.concatenate([np.full(n, p[4], np.float32)
-                             for n, p in zip(counts, per)])
-    real_index = np.arange(len(cat_blocks), dtype=np.int64)
+                             for n, p in zip(rows, per)])
+    starts = np.cumsum([0] + rows[:-1])
+    real_index = np.concatenate([s + p[5] for s, p in zip(starts, per)])
     p0 = trip[0][0]
     for attempt in range(runtime.ATTEMPTS):
         try:

@@ -430,8 +430,8 @@ class Processor:
 
     def masking_aux(self, img, comp_mask, grid):
         """The pass's zeroing mode and frozen per-block state (see
-        zeroing.loop_inputs). Starts block comparisons on the
-        comparator."""
+        zeroing.loop_inputs), on the bucket's grid for a padded
+        comparator. Starts block comparisons on the comparator."""
         comp = self.comparator
         comp.start_block_comparisons()
         if img.is_444():
@@ -448,19 +448,37 @@ class Processor:
                         + (comp.frozen_y_16x16(img, grid.bw, grid.bh),)
                         + comp.children_state(grid.bw, grid.bh))
 
+    def padded_masking_inputs(self, blocks, orig, grid):
+        """The pass's blocks on the comparator's bucket grid (the grid
+        masking_aux's state has, JAX processor.py:567-600): (blocks, orig,
+        real_index), real_index the padded rows of the real blocks; the
+        inputs unchanged and None at exact geometry."""
+        geom = self.comparator.geom
+        if geom is None:
+            return blocks, orig, None
+        gbwp = geom.wp // (8 * grid.factor_x)
+        gbhp = geom.hp // (8 * grid.factor_y)
+
+        def pad(a):
+            return geom.pad_blocks(a.reshape(len(a), -1), grid.bw, grid.bh,
+                                   gbwp, gbhp).reshape(-1, 3, 64)
+        return (pad(blocks), pad(orig),
+                geom.real_index(grid.bw, grid.bh, gbwp))
+
     def select_frequency_masking(self, jpg, img: st.CoeffImage, comp_mask,
                                  target_mul, stop_early):
         lookahead = self.params.zeroing_greedy_lookahead
         grid = img.comps[comp_mask.bit_length() - 1]
-        blocks, orig = self.masking_inputs(jpg, img, comp_mask)
+        blocks, orig, real_index = self.padded_masking_inputs(
+            *self.masking_inputs(jpg, img, comp_mask), grid)
         with self.stats.timed("zeroing_aux"):
             mode, aux = self.masking_aux(img, comp_mask, grid)
         limit32 = np.float32(self.comparator.block_error_limit())
         with self.stats.timed("zeroing_loop"):
             offsets, cand_idx, cand_err = zeroing.compute_zeroing_csr(
                 blocks, orig, limit32, aux, comp_mask,
-                self.comparator.device, mode=mode, lookahead=lookahead,
-                new_model=self.params.new_zeroing_model,
+                self.comparator.device, mode=mode, real_index=real_index,
+                lookahead=lookahead, new_model=self.params.new_zeroing_model,
                 early_exit=self.params.zeroing_early_exit, fused=True)
         self.stats.inc("zeroing_passes")
         self.comparator.finish_block_comparisons()

@@ -25,7 +25,10 @@ Two drivers share the state machine:
     device-to-host copy per round (parallel/lockstep.py).
 
 A failed wave is replayed through Processor._recoverable (runtime.py);
-it never falls back to serial trials.
+it never falls back to serial trials. A padded comparator (config.pad)
+runs its waves on its bucket (Comparator.dispatch_quant_batch), each
+trial bit for bit its single padded compare; waves stay per image, also
+in a corpus whose other compares go through a CompareBatcher.
 """
 
 import numpy as np
