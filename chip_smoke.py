@@ -59,7 +59,9 @@ counts set to 0 just before it and read just after:
     equal to its serial encode_bytes bytes and within 2% of golden, with
     exactly one launch of each of B, B', B'', A, A' and A'' for the whole
     corpus (one per masking pass), and the lockstep encoder on one thread
-    giving the same bytes. It logs the corpus wall, images/min, MPix/s,
+    giving the same bytes, as does ``corpus_cli --serial --threads 3``
+    (its pool only decodes; every compare from the calling thread). It
+    logs the corpus wall, images/min, MPix/s,
     the sum of the serial walls, the phase walls, the CTAs of each
     launch, and the peak device memory and RSS. It runs the default
     route, whose geometry (config.auto("pad")) is the serial encodes';
@@ -82,7 +84,20 @@ counts set to 0 just before it and read just after:
     through the batcher and the rows per stacked compare, the padded
     corpus's bytes equal to each image's serial padded encode, and one
     launch of each greedy kernel and compare of its passes in the first
-    padded run of each corpus.
+    padded run of each corpus;
+  * the mesh phase, one image over several ranks
+    (guetzli_tpu_torch/parallel/; the card machine has one H100): (a) a
+    one-rank NCCL group: ``corpus_cli --distributed`` over the corpus
+    phase's six images and photo_mosaic1 through the mesh path at one
+    rank, each with the serial bytes; (b) two ranks sharing the card
+    through gloo (pinned host staging): ``sharded_blur`` of every sigma
+    on a 908x1444 plane against the single-rank blur, then q95 encodes of
+    bees96x64 and photo_mosaic1 over two bands (480 and 428 rows): golden
+    band, distance at or below target, whether the bytes equal one
+    rank's, kernel B launched once per rank over its band's block rows,
+    the walls against the serial encode's; (c) ``--checkcuda --mesh 2``
+    on bees96x64 (its blur(sharded) line); then bees96x64's memory
+    envelope (memory_envelope) against the CLI's guard.
 
 Every phase that fails makes the script exit nonzero. The last two lines
 of standard output are the kernels' JSON record and {"ok": true,
@@ -90,7 +105,8 @@ of standard output are the kernels' JSON record and {"ok": true,
 
 Without a CUDA device, or outside the repository, it exits nonzero and
 prints no result. ``python3 chip_smoke.py padded`` builds the kernels and
-runs the padded phase alone (no result lines).
+runs the padded phase alone, ``python3 chip_smoke.py mesh`` the mesh and
+memory phases (no result lines).
 """
 
 import contextlib
@@ -152,6 +168,15 @@ ROUTE_ROUNDS = 2
 # Seed and size of the route phase's sparse delta wave.
 SPARSE_SEED = 9
 SPARSE_FLIPS = 20000
+
+# The mesh phase: one image's encode over the ranks of a group
+# (guetzli_tpu_torch/parallel/), on the card's one H100: a one-rank NCCL
+# group, and two ranks sharing the card through gloo.
+MESH_ENCODES = ("tests/fixtures/bees96x64.png",
+                "tests/corpus/photo_mosaic1.png")
+MESH_PLANE = (908, 1444)
+MESH_SEED = 11
+MESH_TIMEOUT = 600.0
 
 # --checkcuda's per-stage mismatch counts on bees_d-420.jpg, as
 # tests/test_torch_tooling.py pins them for the port on the CPU (JAX's
@@ -962,7 +987,49 @@ def phase_corpus(dev, outputs, walls):
     if any(d != outputs[p] for p, d in one):
         raise RuntimeError("1 and %d threads give other bytes"
                            % CORPUS_THREADS)
+    serial_threads(outputs)
     return launches
+
+
+def serial_threads(outputs, threads=3):
+    """corpus_cli --serial --threads 3 over CORPUS: api.encode_corpus's
+    pool decodes while the encodes run one at a time on the calling
+    thread; each output must be its serial encode's bytes, and every
+    compare must come from the calling thread."""
+    import threading
+
+    from guetzli_tpu_torch import comparator as cmp_mod
+    from guetzli_tpu_torch import corpus_cli
+    tmp = tempfile.TemporaryDirectory()
+    out_dir = pathlib.Path(tmp.name)
+    seen = set()
+    dispatch = cmp_mod.Comparator.dispatch_compare
+
+    def spy(self, img):
+        seen.add(threading.current_thread().name)
+        return dispatch(self, img)
+    cmp_mod.Comparator.dispatch_compare = spy
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = corpus_cli.main(
+                ["--serial", "--threads", str(threads), "--quality",
+                 str(QUALITY), "--out", str(out_dir)]
+                + [str(REPO / p) for p, _g in CORPUS])
+        torch.cuda.synchronize()
+    finally:
+        cmp_mod.Comparator.dispatch_compare = dispatch
+    same = [(out_dir / (pathlib.Path(p).stem + ".jpg")).read_bytes()
+            == outputs[p] for p, _g in CORPUS]
+    log("corpus_cli --serial --threads %d: rc %d, %.2f s; the serial bytes: "
+        "%s; compares issued from threads %s"
+        % (threads, rc, time.time() - t0, same, sorted(seen)))
+    if rc != 0 or not all(same) or seen != {threading.current_thread().name}:
+        raise RuntimeError("corpus_cli --serial --threads %d failed:\n%s"
+                           % (threads, err.getvalue()[-3000:]))
+    tmp.cleanup()
 
 
 @contextlib.contextmanager
@@ -1582,6 +1649,237 @@ def phase_padded(dev, outputs, records):
     padded_corpus(dev, padded_encodes(dev, outputs))
 
 
+def _mesh_sigmas():
+    """(sigma, border ratio) of every blur of the compare (consts.py)."""
+    from guetzli_tpu_torch import consts
+    return ([(consts.OPSIN_SIGMA, 0.0)]
+            + [(s, 0.0) for s in consts.EDGE_DETECTOR_SIGMAS]
+            + [(consts.EDGE_LF_SIGMA, 0.0)]
+            + [(s, 0.0) for s in consts.MASK_SIGMAS]
+            + [(consts.DIFFMAP_SIGMA, consts.DIFFMAP_BORDER_RATIO)])
+
+
+def _mesh_blur(group):
+    """parallel/halo.sharded_blur of a seeded MESH_PLANE over the ranks
+    against ops/blur.blur of the whole plane, every sigma: {sigma: (max
+    abs difference, ms of the sharded blur)}."""
+    from guetzli_tpu_torch.ops.blur import blur
+    from guetzli_tpu_torch.parallel.halo import sharded_blur
+    from guetzli_tpu_torch.parallel.mesh import RowBands
+    rng = np.random.RandomState(MESH_SEED)
+    plane = torch.as_tensor(rng.rand(*MESH_PLANE).astype(np.float32) * 255,
+                            device=group.device)
+    px = RowBands(MESH_PLANE[0], group).pixels()
+    out = {}
+    for sigma, ratio in _mesh_sigmas():
+        got = sharded_blur(plane[px.lo:px.hi], sigma, ratio, px)
+        torch.cuda.synchronize()
+        group.barrier()
+        t0 = time.time()
+        sharded_blur(plane[px.lo:px.hi], sigma, ratio, px)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.time() - t0)
+        full = group.all_gather_rows(got, px.counts())
+        diff = float((full - blur(plane, sigma, ratio)).abs().max())
+        out[repr(sigma)] = (diff, ms)
+    return out
+
+
+def _mesh_encode(group, path, out_dir):
+    """One rank's q95 encode of `path` over the group's mesh, the launch
+    counts set to 0 just before it and read just after."""
+    from guetzli_tpu_torch.io.png import read_png
+    from guetzli_tpu_torch.search.processor import (Params, ProcessStats,
+                                                    process_rgb)
+    rgb, w, h = read_png((REPO / path).read_bytes())
+    params = Params()
+    params.butteraugli_target = target()
+    stats = ProcessStats()
+    ctas = []
+    undo = _count_ctas(ctas)
+    _reset_launches()
+    torch.cuda.synchronize()
+    group.barrier()
+    t0 = time.time()
+    try:
+        out = process_rgb(params, rgb, w, h, stats, group.device, group)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        undo()
+    launches = _launch_counts()
+    if group.rank == 0:
+        (out_dir / (pathlib.Path(path).name + ".jpg")).write_bytes(out)
+    return {"wall": wall, "bytes": len(out),
+            "distance": stats.final_distance,
+            "compares": stats.counters.get("iters", 0),
+            "launches": {k: v for k, v in launches.items() if v},
+            "ctas": [(n, c) for n, c, _ev in ctas]}
+
+
+def _mesh_job(group, jobs, out_dir):
+    """One rank of the mesh phase (run by cli.run_ranks): each job is
+    ("blur",) or ("encode", path); the rank's results go to
+    out_dir/rank<r>.json."""
+    out_dir = pathlib.Path(out_dir)
+    res = {"rank": group.rank, "mode": group.mode}
+    for job in jobs:
+        if job[0] == "blur":
+            res["blur"] = _mesh_blur(group)
+        else:
+            res[job[1]] = _mesh_encode(group, job[1], out_dir)
+    (out_dir / ("rank%d.json" % group.rank)).write_text(json.dumps(res))
+    return 0
+
+
+def _run_mesh(n, jobs, out_dir):
+    """cli.run_ranks of _mesh_job over n ranks on the card: every rank's
+    results, in rank order."""
+    from guetzli_tpu_torch import cli
+    if cli.run_ranks(n, _mesh_job, jobs, str(out_dir),
+                     timeout=MESH_TIMEOUT) != 0:
+        raise RuntimeError("the mesh phase's %d-rank run failed" % n)
+    return [json.loads((out_dir / ("rank%d.json" % r)).read_text())
+            for r in range(n)]
+
+
+def phase_mesh(dev, outputs, walls):
+    """One image over several ranks (guetzli_tpu_torch/parallel/): (a) a
+    one-rank NCCL group: corpus_cli --distributed over CORPUS and the
+    mesh path at one rank on photo_mosaic1, each with the serial bytes;
+    (b) two ranks sharing the card through gloo: the sharded blur of
+    every sigma against the single-rank blur, then q95 encodes of
+    MESH_ENCODES (golden band, distance at or below target; whether the
+    bytes equal one rank's; kernel B once per rank over its band's block
+    rows; the wall against the serial encode's); (c) --checkcuda with two
+    ranks (its blur(sharded) line)."""
+    from guetzli_tpu_torch.parallel.mesh import RowBands
+    from guetzli_tpu_torch.kernels import zeroing_loop as zl
+
+    class _Shape:
+        def __init__(self, n, r):
+            self.world, self.rank = n, r
+    tmp = tempfile.TemporaryDirectory()
+    root = pathlib.Path(tmp.name)
+    # (a) One rank: corpus_cli --distributed in its own process.
+    cdir = root / "corpus"
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, "-m", "guetzli_tpu_torch.corpus_cli",
+         "--distributed", "--coordinator", "file://%s" % (root / "store"),
+         "--num-hosts", "1", "--host-index", "0", "--threads",
+         str(CORPUS_THREADS), "--quality", str(QUALITY), "--out", str(cdir)]
+        + [str(REPO / p) for p, _g in CORPUS],
+        cwd=REPO, capture_output=True, text=True, timeout=900)
+    log("mesh (a): corpus_cli --distributed, 1 rank: rc %d, %.2f s; %s; %s"
+        % (r.returncode, time.time() - t0, r.stdout.strip(),
+           " ".join(ln for ln in r.stderr.splitlines()
+                    if ln.startswith("parallel:"))))
+    if r.returncode != 0 or "transport nccl" not in r.stderr:
+        raise RuntimeError("corpus_cli --distributed (1 rank, NCCL) failed:"
+                           "\n%s" % r.stderr[-3000:])
+    for path, _g in CORPUS:
+        got = (cdir / (pathlib.Path(path).stem + ".jpg")).read_bytes()
+        if got != outputs[path]:
+            raise RuntimeError("%s: corpus_cli --distributed gives other "
+                               "bytes than the serial encode" % path)
+    mosaic = MESH_ENCODES[1]
+    one = _run_mesh(1, [("encode", mosaic)], root)[0]
+    rec = one[mosaic]
+    same = (root / (pathlib.Path(mosaic).name + ".jpg")).read_bytes() \
+        == outputs[mosaic]
+    log("mesh (a): %s over a one-rank %s group: %.2f s (serial %.2f s), %d "
+        "bytes, the serial bytes: %s; launches %s; B's CTAs %s"
+        % (mosaic, one["mode"], rec["wall"], walls[mosaic], rec["bytes"],
+           same, rec["launches"], rec["ctas"]))
+    if one["mode"] != "nccl" or not same:
+        raise RuntimeError("the one-rank mesh encode must run on NCCL and "
+                           "give the serial bytes")
+    # (b) Two ranks sharing the card.
+    ranks = _run_mesh(2, [("blur",)] + [("encode", p) for p in MESH_ENCODES],
+                      root)
+    log("mesh (b): 2 ranks, transport %s" % ranks[0]["mode"])
+    for sigma, (diff, ms) in ranks[0]["blur"].items():
+        log("  sharded_blur sigma %s on %dx%d: max abs difference %.3g from "
+            "the single-rank blur; %s ms"
+            % (sigma, MESH_PLANE[1], MESH_PLANE[0], diff,
+               " / ".join("%.2f" % r["blur"][sigma][1] for r in ranks)))
+        if not diff <= 1e-3:
+            raise RuntimeError("sharded_blur sigma %s: %g" % (sigma, diff))
+    golden = dict(E2E)
+    for path in MESH_ENCODES:
+        out = (root / (pathlib.Path(path).name + ".jpg")).read_bytes()
+        recs = [r[path] for r in ranks]
+        h = int(np.frombuffer((REPO / path).read_bytes()[20:24], ">u4")[0])
+        bands = [RowBands(h, _Shape(2, r)).blocks() for r in range(2)]
+        w_blocks = -(-int(np.frombuffer((REPO / path).read_bytes()[16:20],
+                                        ">u4")[0]) // 8)
+        want_ctas = [b.n * w_blocks for b in bands]
+        b_ctas = [[c for n, c in rc["ctas"] if n == zl.ENTRY["444"]]
+                  for rc in recs]
+        log("mesh (b): %s q%d over 2 ranks: %d bytes (golden %d, %+.2f%%; "
+            "one rank %d, equal: %s), distance %.4f; walls %s s against "
+            "%.2f s serial; B's launches per rank %s, CTAs %s (band block "
+            "rows x %d: %s); launches %s"
+            % (path, QUALITY, len(out), golden[path],
+               100.0 * (len(out) - golden[path]) / golden[path],
+               len(outputs[path]), out == outputs[path],
+               recs[0]["distance"], " / ".join("%.2f" % rc["wall"]
+                                               for rc in recs),
+               walls[path], [len(c) for c in b_ctas], b_ctas, w_blocks,
+               want_ctas, [rc["launches"] for rc in recs]))
+        _check_golden(path, out, golden[path])
+        if recs[0]["distance"] > target():
+            raise RuntimeError("%s: distance %.6f above target"
+                               % (path, recs[0]["distance"]))
+        if b_ctas != [[c] for c in want_ctas]:
+            raise RuntimeError("%s: B must launch once per rank over its "
+                               "band's blocks" % path)
+    # (c) --checkcuda with two ranks.
+    out_path = root / "check.jpg"
+    r = subprocess.run(
+        [sys.executable, "-m", "guetzli_tpu_torch", "--mesh", "2",
+         "--checkcuda", str(REPO / MESH_ENCODES[0]), str(out_path)],
+        cwd=REPO, capture_output=True, text=True, timeout=900)
+    counts = {m.group(1): int(m.group(2))
+              for m in _REPORT.finditer(r.stderr)}
+    line = [ln for ln in r.stderr.splitlines() if "blur(sharded)" in ln]
+    log("mesh (c): --checkcuda --mesh 2 %s: rc %d; %s"
+        % (MESH_ENCODES[0], r.returncode, line))
+    if (r.returncode != 0 or counts.get("blur(sharded)") != 0
+            or counts.get("tile_compare(cuda)") != 0):
+        raise RuntimeError("--checkcuda --mesh 2 failed:\n%s"
+                           % r.stderr[-3000:])
+    _check_golden(MESH_ENCODES[0], out_path.read_bytes(), golden[
+        MESH_ENCODES[0]])
+    tmp.cleanup()
+
+
+def phase_memory():
+    """The memory envelope of bees96x64 on the card (memory_envelope, a
+    fresh process), against the CLI's guard at the default limit."""
+    from guetzli_tpu_torch import cli
+    r = subprocess.run(
+        [sys.executable, "-m", "guetzli_tpu_torch.memory_envelope",
+         str(REPO / E2E[0][0])], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError("memory_envelope failed:\n%s" % r.stderr[-3000:])
+    row = json.loads(r.stdout.strip().splitlines()[-1])["rows"][0]
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        cli._check_memory(row["pixels"], cli.K_DEFAULT_MEMLIMIT_MB)
+    log("memory_envelope %s: peak RSS %.1f MB (%.1f MB before the encode), "
+        "device peak %.1f MB; the CLI's guard at %d MB: %s"
+        % (E2E[0][0], row["rss_peak_mb"], row["rss_before_mb"],
+           row["device_peak_mb"], cli.K_DEFAULT_MEMLIMIT_MB,
+           "warns" if err.getvalue() else "silent"))
+    if bool(err.getvalue()) != (row["rss_peak_mb"]
+                                >= cli.K_DEFAULT_MEMLIMIT_MB):
+        raise RuntimeError("the CLI's guard disagrees with the measured "
+                           "peak RSS of %s" % E2E[0][0])
+
+
 def main(argv=()):
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
@@ -1594,6 +1892,15 @@ def main(argv=()):
         # The padded phase alone, against default-path encodes of E2E.
         phase_padded(dev, {p: _serial_encode(p, dev)[0] for p, _g in E2E},
                      [])
+        return 0
+    if list(argv) == ["mesh"]:
+        # The mesh phase alone, against serial encodes of its images.
+        serial = {p: _serial_encode(p, dev)
+                  for p in dict.fromkeys([p for p, _g in CORPUS]
+                                         + list(MESH_ENCODES))}
+        phase_mesh(dev, {p: o for p, (o, _w) in serial.items()},
+                   {p: w for p, (_o, w) in serial.items()})
+        phase_memory()
         return 0
     records = []
     for states in (mosaic444(dev), mosaic420(dev)):
@@ -1615,6 +1922,8 @@ def main(argv=()):
     with _route_env({"TREE_QUANT": "1"}):
         corpus_launches = phase_corpus(dev, outputs, walls)
     phase_padded(dev, outputs, records)
+    phase_mesh(dev, outputs, walls)
+    phase_memory()
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         rec["corpus_launches"] = corpus_launches.get(rec["name"], 0)

@@ -34,7 +34,12 @@ def encode_bytes(data: bytes, quality: float = 95, params: Params = None,
     on the CPU); raises RuntimeError when no GPU is present and the CPU
     was not asked for. Raises ValueError for undecodable input or a
     quality below 84."""
-    dev = resolve(device)
+    return _encode(data, None, quality, params, stats, resolve(device))
+
+
+def _encode(data, pixels, quality, params, stats, dev):
+    """encode_bytes on `dev`; pixels: the PNG's read_png result when
+    decoded already, else None."""
     params = params or Params()
     params.butteraugli_target = consts.butteraugli_score_for_quality(quality)
     stats = stats or ProcessStats()
@@ -43,8 +48,14 @@ def encode_bytes(data: bytes, quality: float = 95, params: Params = None,
         if out is None:
             raise ValueError("JPEG input could not be processed")
         return out
-    rgb, w, h = read_png(data)
+    rgb, w, h = read_png(data) if pixels is None else pixels
     return process_rgb(params, rgb, w, h, stats, dev)
+
+
+def _decode(data):
+    """The host decode that may run ahead of an encode: a PNG's pixels
+    (read_png); None for a JPEG, whose reader is the encode's own."""
+    return None if is_jpeg(data) else read_png(data)
 
 
 def _peek_geometry(data: bytes):
@@ -62,16 +73,16 @@ def encode_corpus(inputs, quality: float = 95, params: Params = None,
     """Encode a corpus of images one at a time (the serial analog of the
     reference's one process per image).
 
-    inputs: (name, bytes) pairs; `threads` concurrent encodes (each
-    image's host work hides another's device round trips). Images are
-    ordered by geometry, and with threads > 1 the first image of each
-    geometry is encoded alone before the others start. A failed image is
+    inputs: (name, bytes) pairs, encoded in the order of their geometry.
+    With `threads` > 1 a pool of that many threads decodes the PNGs
+    ahead of their encodes, while the encodes themselves run one at a
+    time on the calling thread: no compare or kernel is issued from a
+    pool thread, and the bytes are those of threads=1. A failed image is
     recorded as None after a message on stderr and the corpus goes on,
     unless the error is sticky (runtime.is_sticky): the device is lost
-    and the error propagates. With threads > 1 the encodes issue their
-    compares from several threads at once (ROADMAP.md section 3).
-    Runs on the CUDA device unless `device` says otherwise ("cpu").
-    Returns [(name, jpeg_bytes or None, seconds)] in input order."""
+    and the error propagates. Runs on the CUDA device unless `device`
+    says otherwise ("cpu"). Returns [(name, jpeg_bytes or None,
+    seconds)] in input order."""
     dev = resolve(device)
     items = list(inputs)
     geoms = [_peek_geometry(d) for _, d in items]
@@ -80,13 +91,13 @@ def encode_corpus(inputs, quality: float = 95, params: Params = None,
                                   len(items[i][1])))
     results = [None] * len(items)
 
-    def encode_one(i):
+    def encode_one(i, decoded):
         name, data = items[i]
         t0 = time.time()
         try:
-            out = encode_bytes(data, quality,
-                               dataclasses.replace(params) if params
-                               else None, device=dev)
+            out = _encode(data, decoded(), quality,
+                          dataclasses.replace(params) if params else None,
+                          None, dev)
         except Exception as e:
             if runtime.is_sticky(e):
                 raise
@@ -100,15 +111,13 @@ def encode_corpus(inputs, quality: float = 95, params: Params = None,
 
     if threads <= 1:
         for i in order:
-            encode_one(i)
+            encode_one(i, lambda: None)
         return results
-    seen, rest = set(), []
-    for i in order:
-        if geoms[i] in seen:
-            rest.append(i)
-        else:
-            seen.add(geoms[i])
-            encode_one(i)
     with ThreadPoolExecutor(max_workers=threads) as pool:
-        list(pool.map(encode_one, rest))
+        ahead = {}
+        for k, i in enumerate(order):
+            for j in order[k:k + threads]:
+                if j not in ahead:
+                    ahead[j] = pool.submit(_decode, items[j][1])
+            encode_one(i, ahead.pop(i).result)
     return results

@@ -30,6 +30,8 @@ import sys
 import numpy as np
 import torch
 
+from guetzli_tpu_torch.parallel import dist
+
 _TOL = 1e-3  # clguetzli_test.cpp:27 floatCompare tolerance
 
 
@@ -197,7 +199,7 @@ def run_checkcl(rgb, w, h, device="cuda") -> int:
     # Every block of the image, from the exact-geometry Comparator: the
     # candidates and the block state have the same row count.
     cand = torch.as_tensor(_blocks(_quant3_jpeg(rgb, w, h)), device=dev)
-    comp = Comparator(rgb, w, h, 1.0, dev, padded=False)
+    comp = Comparator(rgb, w, h, 1.0, dev, padded=False, mesh=False)
     comp.start_block_comparisons()
     xyb0_tiles, scales, ysel, xsel = comp.block_state(1, 1)
     xyb0_tiles = xyb0_tiles.contiguous()
@@ -217,14 +219,37 @@ def run_checkcl(rgb, w, h, device="cuda") -> int:
         ct, *tl.transpose_aux_444(xyb0_tiles, scales, ysel, xsel))
     total += _report(f"tile_compare_lanes({label})", got, want, tol=5e-3)
 
-    ndev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    sys.stderr.write("checkcl blur(sharded): %s\n" % _sharded_blur_note(ndev))
+    # The halo-exchange blur over the ranks of this process's group
+    # against the single-device blur (the multi-device collective path).
+    group = dist.current()
+    if group is not None and group.world > 1:
+        total += sharded_blur_check(comp.xyb0[0], group)
+    else:
+        ndev = torch.cuda.device_count() if dev.type == "cuda" else 1
+        sys.stderr.write("checkcl blur(sharded): %s\n"
+                         % _sharded_blur_note(ndev))
     return total
 
 
+def sharded_blur_check(plane, group):
+    """Report parallel/halo.sharded_blur (sigma 1.1) of a plane [H, W]
+    whose rows are split over the ranks of `group` against ops/blur.blur
+    of the whole plane: every rank's rows are gathered, and every rank
+    reports the same count."""
+    from guetzli_tpu_torch.ops.blur import blur
+    from guetzli_tpu_torch.parallel.halo import sharded_blur
+    from guetzli_tpu_torch.parallel.mesh import RowBands
+    px = RowBands(plane.shape[0], group).pixels()
+    got = sharded_blur(plane[px.lo:px.hi], 1.1, 0.0, px)
+    return _report("blur(sharded)", group.all_gather_rows(got, px.counts()),
+                   blur(plane, 1.1))
+
+
 def _sharded_blur_note(ndev):
-    """Why the sharded-blur check of the JAX package does not run here."""
+    """Why the sharded-blur check does not run: one rank (the JAX
+    package's check runs over the devices of one process; the port's
+    over the ranks of a group, --mesh N)."""
     if ndev > 1:
-        return ("SKIPPED (%d devices: the sharded blur waits for the "
-                "multi-GPU slice of the port)" % ndev)
+        return ("SKIPPED (%d devices, 1 rank: --mesh N runs the check over "
+                "N ranks)" % ndev)
     return "SKIPPED (1 device)"

@@ -10,7 +10,11 @@ stops once its error reaches the block error limit (processor.cc:458-465).
 --checkcuda (alias --checkcl) first runs the kernel verification of
 checkcl.py on the input image (the clguetzli_test.cpp analog) and prints
 its report to stderr; --profile DIR writes a torch.profiler Chrome trace
-of the run to DIR/trace.json.
+of the run to DIR/trace.json. --mesh N encodes one 4:4:4 image over N
+ranks, processes that this command starts itself (run_ranks): each holds
+a band of the image's rows, on cuda:{rank % device_count} or, with
+--cpu, on the CPU, and the output's bytes are those of one device
+(parallel/mesh.py). --mesh 1 is the one-device path.
 """
 
 import os
@@ -37,6 +41,8 @@ Flags:
                  kernels on the input image (report on standard error).
   --profile D  - Write a torch.profiler Chrome trace of the run to
                  D/trace.json.
+  --mesh N     - Encode over N ranks, each on a band of the image's rows
+                 (4:4:4 input; the same bytes as one device).
 """
 
 # Memory guard: the reference's contract values (guetzli.cc:42-45) decide
@@ -48,7 +54,10 @@ Flags:
 # guetzli_tpu_torch.memory_envelope, on an NVIDIA H100 80GB HBM3 at
 # 700.00 W): the peak RSS is mostly PyTorch's CUDA runtime (4.75 GB
 # before the encode starts); the card holds the image's state, and its
-# peak is the quant tree's widest wave (the card's default route).
+# peak is the quant tree's widest wave (the card's default route). The
+# smallest image measured the same way, bees96x64 (6,144 pixels), peaks
+# at 6,187-6,203 MB, within 40 MB of the fit's base: above the default
+# limit, so on the card the warning stands for every image, and says so.
 K_BYTES_PER_PIXEL = 110
 K_LOWEST_MEMUSAGE_MB = 100
 K_DEFAULT_MEMLIMIT_MB = 6000
@@ -77,10 +86,12 @@ def _check_memory(pixels, memlimit_mb, on_card=True) -> bool:
         sys.stderr.write(
             "Warning: the measured process envelope of this port is ~%d MB "
             "for this image (PyTorch and the CUDA context; ~%d MB more on "
-            "the card), above the %d MB limit. Proceeding per the "
-            "reference guard model.\n"
+            "the card), above the %d MB limit. On the card every image "
+            "passes %d MB: the CUDA runtime holds ~4,750 MB before the "
+            "encode starts. Proceeding per the reference guard model.\n"
             % (measured_mb, K_DEVICE_BASE_MB
-               + (pixels * K_DEVICE_BYTES_PER_PIXEL >> 20), memlimit_mb))
+               + (pixels * K_DEVICE_BYTES_PER_PIXEL >> 20), memlimit_mb,
+               K_DEFAULT_MEMLIMIT_MB))
     return True
 
 
@@ -88,7 +99,7 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     opts = {"verbose": False, "fast_zeroing": False, "check": False,
             "device": None, "quality": K_DEFAULT_QUALITY,
-            "memlimit_mb": K_DEFAULT_MEMLIMIT_MB}
+            "memlimit_mb": K_DEFAULT_MEMLIMIT_MB, "mesh": 1}
     profile_dir = None
     i = 0
     try:
@@ -113,6 +124,11 @@ def main(argv=None) -> int:
             elif flag == "--profile":
                 i += 1
                 profile_dir = argv[i]
+            elif flag == "--mesh":
+                i += 1
+                opts["mesh"] = int(argv[i])
+                if opts["mesh"] < 1:
+                    raise ValueError(opts["mesh"])
             else:
                 sys.stderr.write(_USAGE)
                 return 1
@@ -120,7 +136,7 @@ def main(argv=None) -> int:
     except (IndexError, ValueError):
         sys.stderr.write(_USAGE)
         return 1
-    if len(argv) - i != 2:
+    if len(argv) - i != 2 or (profile_dir and opts["mesh"] > 1):
         sys.stderr.write(_USAGE)
         return 1
     if profile_dir is None:
@@ -158,8 +174,16 @@ def _pixels(data):
     return rgb, jpg.width, jpg.height
 
 
+def _is_420(data):
+    from guetzli_tpu_torch.codec import reader
+    try:
+        return reader.read_jpeg(data).is_420()
+    except reader.JpegError:
+        return False
+
+
 def _run(in_name, out_name, verbose, fast_zeroing, check, device, quality,
-         memlimit_mb) -> int:
+         memlimit_mb, mesh=1) -> int:
     if in_name == "-":
         data = sys.stdin.buffer.read()
     else:
@@ -170,9 +194,6 @@ def _run(in_name, out_name, verbose, fast_zeroing, check, device, quality,
     from guetzli_tpu_torch.codec.reader import peek_dimensions
     from guetzli_tpu_torch.device import resolve
     from guetzli_tpu_torch.io.png import read_png
-    from guetzli_tpu_torch.search.processor import (Params, ProcessStats,
-                                                    process_jpeg_bytes,
-                                                    process_rgb)
     if is_jpeg(data):
         dims = peek_dimensions(data)
         pixels = dims[0] * dims[1] if dims is not None else None
@@ -191,34 +212,111 @@ def _run(in_name, out_name, verbose, fast_zeroing, check, device, quality,
     except RuntimeError as e:
         sys.stderr.write("%s\n" % e)
         return 1
+    if mesh > 1:
+        if is_jpeg(data) and _is_420(data):
+            sys.stderr.write("--mesh: a 4:2:0 input over several ranks comes "
+                             "with the next slice of the port; encode it "
+                             "without --mesh\n")
+            return 1
+        return run_ranks(mesh, _encode_job, data, out_name, verbose,
+                         fast_zeroing, check, quality, device=device)
+    pix = None if is_jpeg(data) else (rgb, w, h)
+    return _encode(data, pix, out_name, dev, verbose, fast_zeroing, check,
+                   quality)
+
+
+def _encode(data, pix, out_name, dev, verbose, fast_zeroing, check,
+            quality, lead=True) -> int:
+    """The kernel check, when asked, then the encode of `data` (pix: a
+    PNG's (rgb, w, h)) on `dev`, and the output written. Under a mesh
+    every rank runs both, and the rank that is not `lead` neither
+    reports nor writes."""
+    from guetzli_tpu_torch.search.processor import (Params, ProcessStats,
+                                                    process_jpeg_bytes,
+                                                    process_rgb)
     if check:
         # Runtime dual-execution verification of the kernels on this input
         # (clguetzli_test.cpp analog); the report goes to stderr.
+        import contextlib
+        import io
+
         from guetzli_tpu_torch.checkcl import run_checkcl
-        pix = _pixels(data) if is_jpeg(data) else (rgb, w, h)
-        if pix is not None:
-            run_checkcl(*pix, device=dev)
+        checked = _pixels(data) if pix is None else pix
+        if checked is not None:
+            with (contextlib.nullcontext() if lead else
+                  contextlib.redirect_stderr(io.StringIO())):
+                run_checkcl(*checked, device=dev)
     params = Params()
     params.butteraugli_target = consts.butteraugli_score_for_quality(quality)
     params.zeroing_early_exit = fast_zeroing
-    stats = ProcessStats(debug=verbose)
-    if is_jpeg(data):
+    stats = ProcessStats(debug=verbose and lead)
+    if pix is None:
         # None: unreadable or unsupported; the processor printed why.
         out = process_jpeg_bytes(params, data, stats, dev)
         if out is None:
             return 1
     else:
         try:
-            out = process_rgb(params, rgb, w, h, stats, dev)
+            out = process_rgb(params, *pix, stats, dev)
         except ValueError:
             # e.g. quality below 84; the processor printed the reason.
             return 1
+    if not lead:
+        return 0
     if out_name == "-":
         sys.stdout.buffer.write(out)
     else:
         with open(out_name, "wb") as f:
             f.write(out)
     return 0
+
+
+def run_ranks(n, fn, *args, device=None, timeout=1800.0):
+    """Run fn(group, *args) in n new processes, the ranks of one group
+    (parallel/dist.init through a FileStore in a temporary directory) on
+    `device` ("cpu", or None: cuda:{rank % device_count}), with
+    GUETZLI_TPU_MESH=n. Returns 0, or 1 after the failed rank's error on
+    stderr: a rank that fails takes the run down, and its peers' waits
+    end at `timeout` seconds. fn must be a module-level function."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    # CPU ranks share this process's torch threads.
+    threads = max(1, torch.get_num_threads() // n)
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            mp.spawn(_rank_main, nprocs=n, join=True,
+                     args=(n, "file://" + os.path.join(tmp, "store"),
+                           device, timeout, threads, fn, args))
+        except Exception as e:
+            sys.stderr.write("--mesh %d: %s\n" % (n, e))
+            return 1
+    return 0
+
+
+def _rank_main(rank, n, init_method, device, timeout, threads, fn, args):
+    os.environ["GUETZLI_TPU_MESH"] = str(n)
+    if device == "cpu":
+        import torch
+        torch.set_num_threads(threads)
+    from guetzli_tpu_torch.parallel import dist
+    group = dist.init(n, rank, init_method, device=device, timeout=timeout)
+    rc = fn(group, *args)
+    if rc:
+        sys.exit(rc)
+    dist.shutdown()
+
+
+def _encode_job(group, data, out_name, verbose, fast_zeroing, check,
+                quality) -> int:
+    """One rank's part of a --mesh encode: every rank runs the search,
+    rank 0 alone reports and writes the output."""
+    from guetzli_tpu_torch.api import is_jpeg
+    from guetzli_tpu_torch.io.png import read_png
+    pix = None if is_jpeg(data) else read_png(data)
+    return _encode(data, pix, out_name, group.device, verbose, fast_zeroing,
+                   check, quality, lead=group.rank == 0)
 
 
 if __name__ == "__main__":

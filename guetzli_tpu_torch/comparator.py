@@ -47,6 +47,9 @@ from guetzli_tpu_torch.ops import upsample as us
 from guetzli_tpu_torch.ops.opsin import (opsin_dynamics_image,
                                          opsin_dynamics_image_dyn)
 from guetzli_tpu_torch.ops.padgeom import PadGeom, split_scales
+from guetzli_tpu_torch.parallel import banded
+from guetzli_tpu_torch.parallel.mesh import (RowBands, mesh_from_env,
+                                             put_blocks)
 
 _F32 = np.float32
 
@@ -432,6 +435,17 @@ class Comparator:
     distmaps are [.., Hp, Wp], zero or garbage outside the image, and
     the per-block state has the bucket's block grid.
 
+    ``mesh`` (a parallel/dist.Group) encodes the image over the ranks of
+    the group: this rank's device state and compares cover its band of rows
+    (parallel/banded.py), the score is the max over the ranks and the
+    block weights are every rank's rows gathered, so every rank's host
+    search reads the same numbers. None reads GUETZLI_TPU_MESH
+    (mesh_from_env); False is one device whatever the environment says.
+    Under a mesh only the 4:4:4 compares run, at exact geometry, and the
+    routes that keep per-image device state stay off, as in the JAX
+    package: the quant waves, the sparse back end (and in the search,
+    speculation and the pipeline).
+
     ``batcher`` (a CompareBatcher, set by the lockstep corpus driver) makes
     a padded comparator's dispatch_compare and
     dispatch_compare_with_weights enqueue their compare there. With a
@@ -442,15 +456,22 @@ class Comparator:
     ends issue none of it."""
 
     def __init__(self, rgb, width, height, target_distance, device,
-                 xyb0=None, padded=None):
+                 xyb0=None, padded=None, mesh=None):
         self.width = width
         self.height = height
         self.target_distance = float(target_distance)
         self.device = torch.device(device)
         self.rgb_orig = np.asarray(rgb, dtype=np.uint8).reshape(
             height, width, 3)
+        if mesh is None:
+            mesh = mesh_from_env()
+        self.mesh = mesh or None
+        self.bands = RowBands(height, self.mesh) if self.mesh else None
         if padded is None:
-            padded = xyb0 is None and config.auto("pad", self.device)
+            padded = (xyb0 is None and self.mesh is None
+                      and config.auto("pad", self.device))
+        if padded and self.mesh is not None:
+            raise ValueError("the padded geometry stays off under a mesh")
         self.geom = PadGeom(width, height) if padded else None
         self.batcher = None
         # Whole-image compares dispatched (a wave counts its trials).
@@ -475,6 +496,10 @@ class Comparator:
         """The original's opsin [3, H, W], or [3, Hp, Wp] on a bucket
         (then also the image's row state: _w, _h, _sc_flat)."""
         lut = consts.SRGB_TO_LINEAR.astype(np.float32)
+        if self.bands is not None:
+            px = self.bands.pixels()
+            lin0 = lut[self.rgb_orig[px.lo:px.hi]].transpose(2, 0, 1)
+            return banded.opsin(self._up(lin0), px)
         lin0 = lut[self.rgb_orig].transpose(2, 0, 1)
         if self.geom is None:
             return opsin_dynamics_image(self._up(lin0))
@@ -543,6 +568,8 @@ class Comparator:
                                        coeffs, *self._row(), self.geom.wp,
                                        self.geom.hp)
             return score[0], dmap[0]
+        if self.bands is not None:
+            return self._band_compare(img)
         if img.is_444():
             return _full_compare(self._up(img.coeffs), self.xyb0, img.bw,
                                  img.bh, self.width, self.height)
@@ -550,6 +577,22 @@ class Comparator:
         return _full_compare_420(self._up(y.coeffs), self._up(u.coeffs),
                                  self._up(v.coeffs), self.xyb0, y.bw, y.bh,
                                  u.bw, u.bh, self.width, self.height)
+
+    def _band_compare(self, img):
+        """(score over every rank, the band's diffmap rows) of a 4:4:4
+        image under a mesh."""
+        if not img.is_444():
+            raise NotImplementedError(
+                "a 4:2:0 encode over several ranks comes with the next "
+                "slice of the port (parallel/mesh.py)")
+        coeffs = put_blocks(self.bands, img.coeffs, self.device, axis=1)
+        px = self.bands.pixels()
+        dmap = self.xyb0.new_zeros((0, self.width))
+        if px.n:
+            xyb1 = banded.opsin(banded.linear_rgb(coeffs, img.bw, self.bands,
+                                                  self.width), px)
+            dmap = banded.diffmap(self.xyb0, xyb1, self.bands)
+        return banded.score(dmap, self.bands), dmap
 
     def fetch_compare_plain(self, handle):
         handle = _resolved(handle)
@@ -567,8 +610,9 @@ class Comparator:
         because XLA compiles one program per bucket and batch size; the
         port runs its eager chain with any number of trials at either
         geometry, so every comparator takes them (a padded one on its
-        bucket, with or without a batcher: waves are per image)."""
-        return True
+        bucket, with or without a batcher: waves are per image), but
+        not one under a mesh (JAX comparator.py:655)."""
+        return self.mesh is None
 
     def quant_base_upload(self, img):
         """Put the quant search's base (the dequantized input coefficients
@@ -659,6 +703,12 @@ class Comparator:
     # -- per-block comparison state -------------------------------------
 
     def start_block_comparisons(self):
+        if self.bands is not None:
+            self._mask_xyz = (
+                banded.mask(self.xyb0, self.xyb0, self.bands)[0]
+                if self.bands.pixels().n else self.xyb0.new_zeros(
+                    (3, 0, self.width)))
+            return
         if self.geom is None:
             self._mask_xyz = dm.mask(self.xyb0, self.xyb0)[0]
             return
@@ -681,14 +731,20 @@ class Comparator:
             w, h = self.width, self.height
             bw = (w + 7) // 8
             bh = (h + 7) // 8
+            # Under a mesh: this rank's block rows [b0, b1) alone.
+            b0, b1, y0 = 0, bh, 0
+            if self.bands is not None:
+                bs = self.bands.blocks()
+                b0, b1, y0 = bs.lo, bs.hi, self.bands.lo
             xyb0_tiles = tile_ops.original_opsin_tiles(
-                self.rgb_orig, w, h, bw, bh, self.device)
-            bx = np.tile(np.arange(bw), bh)
-            by = np.repeat(np.arange(bh), bw)
+                self.rgb_orig[y0:], w, h - y0, bw, b1 - b0, self.device)
+            bx = np.tile(np.arange(bw), b1 - b0)
+            by = np.repeat(np.arange(b1 - b0), bw)
             scales = _gather_block_scales(
                 self._mask_xyz, torch.as_tensor(8 * by, device=self.device),
                 torch.as_tensor(8 * bx, device=self.device))
-            ysel, xsel = tile_ops.edge_gather_indices(bw, bh, w, h)
+            ysel, xsel = (a[b0 * bw:b1 * bw] for a in
+                          tile_ops.edge_gather_indices(bw, bh, w, h))
             if self.geom is not None:
                 g = self.geom
                 real = self._up(g.real_index(bw, bh, g.bwp))
@@ -827,6 +883,9 @@ class Comparator:
         """[4, NB] weights (device) of a distmap on the real grid."""
         sizex, sizey, gbw, gbh = self._grid_dims(factor_x, factor_y)
         target = self.target_distance * target_mul
+        if self.bands is not None:
+            return banded.weights(dmap, _F32(target), sizex, sizey, gbw,
+                                  gbh, direction > 0, self.bands)
         if self.geom is None:
             return _weights_all_radii_impl(dmap, _F32(target), sizex, sizey,
                                            gbw, gbh, direction > 0)
@@ -924,8 +983,9 @@ class Comparator:
     def supports_sparse(self, img, comp_mask):
         """The resident state is the 4:4:4 pass's [3, NB, 64] planes (JAX
         supports_sparse; the 4:2:0 passes upload whole planes). Sparse
-        compares bypass a batcher: the state is the image's own."""
-        return comp_mask == 7 and img.is_444()
+        compares bypass a batcher: the state is the image's own. Off
+        under a mesh."""
+        return comp_mask == 7 and img.is_444() and self.mesh is None
 
     def backend_sync_full(self, img):
         """Upload the back end's coefficient state [3, NB, 64] int32 from

@@ -17,6 +17,8 @@ sparse (SPARSE)          | see auto() below       | resident back-end
 pad (PAD)                | see auto() below       | padded bucket
                          |                        | geometry; a corpus
                          |                        | stacks compares
+mesh (MESH)              | 0: one device          | N: one image over
+                         |                        | N ranks (--mesh N)
 
 The route knobs are tri-state: None (unset) is "auto", which the
 call site decides per device through ``auto``, as the JAX package decides
@@ -99,6 +101,12 @@ def sparse():
 def pad():
     """GUETZLI_TPU_PAD: padded bucket geometry (ops/padgeom.py)."""
     return _opt_flag("PAD")
+
+
+def mesh():
+    """GUETZLI_TPU_MESH: the number of ranks one image is encoded over
+    (parallel/mesh.py; the CLI's --mesh N). 0 when unset."""
+    return _opt_int("MESH") or 0
 
 
 def auto(knob, device):

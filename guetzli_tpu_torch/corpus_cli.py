@@ -13,8 +13,15 @@ output is DIR/<input stem>.jpg, or DIR/<input name>.jpg where two inputs
 share a stem (photo.png and photo.jpg). Runs on the CUDA device; --cpu
 runs on the CPU instead. --num-hosts N --host-index I encode only every N-th
 file from the I-th: a corpus split over N machines, each running its
-own instance. --verbose writes each image's size and, for the lockstep
-encoder, the phase walls to stderr.
+own instance. --distributed joins the process to a torch.distributed
+group instead, whose rank and world size take the places of
+--host-index and --num-hosts: with --coordinator ADDR (host:port, or a
+tcp:// or file:// URL) the group of --num-hosts processes meets there,
+this one as rank --host-index; without it the group is torchrun's
+(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT). Each rank encodes its
+share on its own device (cuda:{rank % device_count}, or the CPU with
+--cpu); the ranks exchange nothing. --verbose writes each image's size
+and, for the lockstep encoder, the phase walls to stderr.
 
 Prints one JSON line: host, images, encoded, bytes, wall_s,
 images_per_min. Exits 1 when an image was not encoded.
@@ -35,6 +42,37 @@ def output_names(names):
             for n, s in zip(names, stems)}
 
 
+def init_method(coordinator):
+    """torch.distributed's init_method for --coordinator: a tcp:// or
+    file:// URL as it is, host:port as tcp://host:port."""
+    if coordinator.startswith(("tcp://", "file://")):
+        return coordinator
+    host, sep, port = coordinator.rpartition(":")
+    if not (sep and host and port.isdigit()):
+        raise ValueError("--coordinator takes host:port or a tcp:// or "
+                         "file:// URL, not %r" % coordinator)
+    return "tcp://" + coordinator
+
+
+def _join(args):
+    """Join the group of --distributed: the Group (parallel/dist.py)."""
+    import os
+
+    from guetzli_tpu_torch.parallel import dist
+    if args.coordinator:
+        method, world, rank = (init_method(args.coordinator),
+                               args.num_hosts, args.host_index)
+    else:
+        if "WORLD_SIZE" not in os.environ or "RANK" not in os.environ:
+            raise ValueError("--distributed without --coordinator reads "
+                             "RANK and WORLD_SIZE (torchrun) and they are "
+                             "not set")
+        method, world, rank = ("env://", int(os.environ["WORLD_SIZE"]),
+                               int(os.environ["RANK"]))
+    return dist.init(world, rank, method,
+                     device="cpu" if args.cpu else None, timeout=300.0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m guetzli_tpu_torch.corpus_cli")
@@ -44,9 +82,12 @@ def main(argv=None) -> int:
     ap.add_argument("--num-hosts", type=int, default=1)
     ap.add_argument("--host-index", type=int, default=0)
     ap.add_argument("--distributed", action="store_true",
-                    help="not ported yet (the multi-GPU slice)")
+                    help="join a torch.distributed group; its rank and "
+                         "world size split the file list")
     ap.add_argument("--coordinator", default=None,
-                    help="not ported yet (the multi-GPU slice)")
+                    help="with --distributed: the group's address "
+                         "(host:port, or a tcp:// or file:// URL), with "
+                         "--num-hosts/--host-index as world size and rank")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the CUDA device")
     ap.add_argument("--threads", type=int, default=None,
@@ -57,11 +98,8 @@ def main(argv=None) -> int:
                          "lockstep (the same bytes)")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args(argv)
-    if args.distributed or args.coordinator:
-        sys.stderr.write("--distributed and --coordinator are not ported "
-                         "yet: they come with the multi-GPU slice of the "
-                         "port. Split a corpus over machines with "
-                         "--num-hosts and --host-index.\n")
+    if args.coordinator and not args.distributed:
+        sys.stderr.write("--coordinator needs --distributed\n")
         return 1
     if not 0 <= args.host_index < args.num_hosts:
         sys.stderr.write("--host-index must lie in [0, --num-hosts)\n")
@@ -69,8 +107,13 @@ def main(argv=None) -> int:
 
     from guetzli_tpu_torch.device import resolve
     try:
-        dev = resolve("cpu" if args.cpu else None)
-    except RuntimeError as e:
+        if args.distributed:
+            group = _join(args)
+            args.num_hosts, args.host_index = group.world, group.rank
+            dev = group.device
+        else:
+            dev = resolve("cpu" if args.cpu else None)
+    except (RuntimeError, ValueError) as e:
         sys.stderr.write("%s\n" % e)
         return 1
 
@@ -121,6 +164,9 @@ def main(argv=None) -> int:
         "bytes": total, "wall_s": round(wall, 2),
         "images_per_min": round(60.0 * ok / wall, 2) if wall else None,
     }))
+    if args.distributed:
+        from guetzli_tpu_torch.parallel import dist
+        dist.shutdown(wait=False)
     return 0 if ok == len(mine) else 1
 
 

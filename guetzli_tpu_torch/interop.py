@@ -35,7 +35,7 @@ def comparator_state_from_numpy(rgb, width, height, target_distance,
         return torch.as_tensor(np.array(a, dtype=dtype), device=dev)
 
     comp = Comparator(rgb, width, height, target_distance, dev,
-                      xyb0=up(xyb0, np.float32))
+                      xyb0=up(xyb0, np.float32), mesh=False)
     if mask_xyz is not None:
         comp._mask_xyz = up(mask_xyz, np.float32)
     if block_state is not None:

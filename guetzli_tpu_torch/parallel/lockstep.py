@@ -215,7 +215,7 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
             except ValueError as e:
                 sys.stderr.write("%s: %s\n" % (name, e))
             continue
-        comp = Comparator(rgb, w, h, target, dev, padded=padded)
+        comp = Comparator(rgb, w, h, target, dev, padded=padded, mesh=False)
         comp.batcher = batcher
         proc = Processor(params, comp, ProcessStats())
         if jpg_in is None:

@@ -114,7 +114,10 @@ def _backend_pipeline_lag(comparator):
     so the decisions and bytes are lag 0's; lag >= 2 uses older weights
     and moves the bytes within the band. Every iteration's output is
     still MaybeOutput-scored with its own distance. GUETZLI_TPU_PIPELINE,
-    else config.auto per device."""
+    else config.auto per device; 0 under a mesh (comparator.mesh), as in
+    the JAX package."""
+    if comparator.mesh is not None:
+        return 0
     return config.auto("pipeline_lag", comparator.device)
 
 
@@ -250,7 +253,11 @@ class Processor:
         recovery from a recoverable device error (runtime.py): free the
         allocator's cache, rebuild the comparator's device state and replay
         the deterministic dispatch on the same device, up to
-        runtime.ATTEMPTS tries. Any other error propagates."""
+        runtime.ATTEMPTS tries. Any other error propagates, and under a
+        mesh every error does: one rank's replay would leave its peers'
+        collectives unmatched."""
+        if self.comparator.mesh is not None:
+            return fetch_fn(dispatch_fn() if pending is None else pending)
         for attempt in range(runtime.ATTEMPTS):
             try:
                 if pending is None:
@@ -328,7 +335,7 @@ class Processor:
                 select_quant_matrix_tree
             return select_quant_matrix_tree(self, jpg_in, downsample,
                                             best_q, img)
-        if config.auto("speculate", dev):
+        if config.auto("speculate", dev) and self.comparator.mesh is None:
             return self._select_quant_matrix_speculative(jpg_in, downsample,
                                                          best_q, img)
         qgen = QuantMatrixGenerator(downsample)
@@ -479,7 +486,8 @@ class Processor:
                 blocks, orig, limit32, aux, comp_mask,
                 self.comparator.device, mode=mode, real_index=real_index,
                 lookahead=lookahead, new_model=self.params.new_zeroing_model,
-                early_exit=self.params.zeroing_early_exit, fused=True)
+                early_exit=self.params.zeroing_early_exit, fused=True,
+                bands=self.comparator.bands)
         self.stats.inc("zeroing_passes")
         self.comparator.finish_block_comparisons()
         del blocks, orig, aux
@@ -1100,10 +1108,10 @@ def decode_jpeg_to_rgb(jpg: jd.JpegData):
 
 
 def process_jpeg_bytes(params: Params, data: bytes,
-                       stats: ProcessStats = None, device="cuda"):
+                       stats: ProcessStats = None, device="cuda", mesh=None):
     """guetzli::Process for JPEG input (processor.cc:1029-1066). Returns
     the JPEG bytes, or None (after a message on stderr) for an unreadable
-    or unsupported input."""
+    or unsupported input. `mesh`: the comparator's (comparator.py)."""
     from guetzli_tpu_torch.codec import reader
     stats = stats or ProcessStats()
     try:
@@ -1120,11 +1128,12 @@ def process_jpeg_bytes(params: Params, data: bytes,
         # ProcessUnsupportedJpegData (processor.cc:1069-1153): CMYK/YCCK,
         # other samplings (4:2:2, 4:1:1), grayscale and RGB-tagged JPEGs
         # are decoded to RGB and re-encoded from pixels.
-        return process_unsupported_jpeg_bytes(params, data, stats, device)
+        return process_unsupported_jpeg_bytes(params, data, stats, device,
+                                              mesh)
     comparator = None
     if jpg.width >= 32 and jpg.height >= 32:
         comparator = Comparator(rgb, jpg.width, jpg.height,
-                                params.butteraugli_target, device)
+                                params.butteraugli_target, device, mesh=mesh)
     proc = Processor(params, comparator, stats)
     if not proc.process_jpeg_data(jpg):
         return None
@@ -1133,7 +1142,7 @@ def process_jpeg_bytes(params: Params, data: bytes,
 
 def process_unsupported_jpeg_bytes(params: Params, data: bytes,
                                    stats: ProcessStats = None,
-                                   device="cuda"):
+                                   device="cuda", mesh=None):
     """ProcessUnsupportedJpegData (processor.cc:1069-1153): decode any
     JPEG the reader parses to RGB (codec/full_decode.py, libjpeg's integer
     semantics) and encode the pixels."""
@@ -1145,20 +1154,22 @@ def process_unsupported_jpeg_bytes(params: Params, data: bytes,
         sys.stderr.write("Can't decode unsupported JPEG: %s\n" % e)
         return None
     try:
-        return process_rgb(params, rgb, w, h, stats, device)
+        return process_rgb(params, rgb, w, h, stats, device, mesh)
     except ValueError:
         return None
 
 
 def process_rgb(params: Params, rgb, w, h, stats: ProcessStats = None,
-                device="cuda") -> bytes:
+                device="cuda", mesh=None) -> bytes:
     """guetzli::Process for RGB input (processor.cc:1157-1185). `device`
-    is where the comparator and the kernels run."""
+    is where the comparator and the kernels run; `mesh` the ranks it
+    runs over (comparator.Comparator: None reads GUETZLI_TPU_MESH)."""
     stats = stats or ProcessStats()
     jpg = encode_rgb_to_jpeg(rgb, w, h)
     comparator = None
     if w >= 32 and h >= 32:
-        comparator = Comparator(rgb, w, h, params.butteraugli_target, device)
+        comparator = Comparator(rgb, w, h, params.butteraugli_target, device,
+                                mesh=mesh)
     proc = Processor(params, comparator, stats)
     if not proc.process_jpeg_data(jpg):
         raise ValueError("processing failed")

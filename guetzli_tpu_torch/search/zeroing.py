@@ -216,9 +216,19 @@ def csr_from_rails(bank_idx, bank_err, perm, inv_perm, limit_np,
 
 def compute_zeroing_csr(blocks, orig_blocks, limit, aux, comp_mask, device,
                         mode="444", real_index=None, lookahead=3,
-                        new_model=True, early_exit=False, fused=True):
+                        new_model=True, early_exit=False, fused=True,
+                        bands=None):
     """Greedy zeroing of every block + CSR compaction (the port of
-    compute_zeroing_csr_staged). See greedy_rails and csr_from_rails."""
+    compute_zeroing_csr_staged). See greedy_rails and csr_from_rails.
+    Under a mesh (`bands`, parallel/mesh.RowBands; 4:4:4, exact
+    geometry) the greedy loop runs on this rank's block rows alone, with
+    `aux` the comparator's state of those rows, and the rails of every
+    rank are gathered before the compaction, so every rank builds the
+    same CSR."""
+    if bands is not None:
+        return _zeroing_csr_banded(blocks, orig_blocks, limit, aux,
+                                   comp_mask, device, mode, lookahead,
+                                   new_model, early_exit, fused, bands)
     if blocks.shape[0] == 0:
         n = 0 if real_index is None else len(real_index)
         return (np.zeros(n + 1, np.int64), np.empty(0, np.int32),
@@ -226,3 +236,30 @@ def compute_zeroing_csr(blocks, orig_blocks, limit, aux, comp_mask, device,
     rails = greedy_rails(blocks, orig_blocks, limit, aux, comp_mask, device,
                          mode, lookahead, new_model, early_exit, fused)
     return csr_from_rails(*rails, real_index=real_index)
+
+
+def _zeroing_csr_banded(blocks, orig_blocks, limit, aux, comp_mask, device,
+                        mode, lookahead, new_model, early_exit, fused,
+                        bands):
+    """compute_zeroing_csr of this rank's block rows, the rails
+    all-gathered in block order. The blocks are independent, so each
+    block's rails are those of the single-device loop."""
+    bs = bands.blocks()
+    bw = blocks.shape[0] // bs.size
+    sl = slice(bs.lo * bw, bs.hi * bw)
+    limit = np.asarray(limit, dtype=np.float32)
+    if bs.n:
+        idx, err, _perm, inv_perm, _lim = greedy_rails(
+            blocks[sl], orig_blocks[sl], limit[sl] if limit.ndim else limit,
+            aux, comp_mask, device, mode, lookahead, new_model, early_exit,
+            fused)
+        back = torch.as_tensor(inv_perm, dtype=torch.int64, device=device)
+        idx, err = idx[back], err[back]
+    else:
+        idx = torch.zeros((0, K), dtype=torch.int32, device=device)
+        err = torch.zeros((0, K), dtype=torch.float32, device=device)
+    counts = [c * bw for c in bs.counts()]
+    idx = bands.group.all_gather_rows(idx.contiguous(), counts)
+    err = bands.group.all_gather_rows(err.contiguous(), counts)
+    ident = np.arange(blocks.shape[0], dtype=np.int64)
+    return csr_from_rails(idx, err, ident, ident, limit)

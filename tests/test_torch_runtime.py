@@ -248,10 +248,28 @@ def test_corpus_cli_on_the_cpu(tmp_path, capsys, serial):
         want = api.encode_bytes((tmp_path / name).read_bytes(), 95,
                                 device="cpu")
         assert (out / (name + ".jpg")).read_bytes() == want
-    for flags in (["--distributed"], ["--coordinator", "localhost:1"]):
+    # --distributed: a group of one gloo rank encodes every file, with
+    # the serial bytes.
+    from guetzli_tpu_torch.parallel import dist
+    one = tmp_path / "one"
+    try:
+        assert corpus_cli.main(
+            ["--cpu", "--distributed", "--coordinator",
+             "file://%s" % (tmp_path / "store"), "--out", str(one),
+             str(tmp_path / "x.png"), str(tmp_path / "x.jpg")]) == 0
+    finally:
+        dist.shutdown(wait=False)
+    assert '"host": 0' in capsys.readouterr().out
+    for name in ("x.png", "x.jpg"):
+        assert ((one / (name + ".jpg")).read_bytes()
+                == (out / (name + ".jpg")).read_bytes())
+    # A coordinator that is no address, or one without --distributed.
+    for flags, why in ((["--distributed", "--coordinator", "nohost"],
+                        "host:port"),
+                       (["--coordinator", "localhost:1"], "--distributed")):
         assert corpus_cli.main(["--cpu", *flags, "--out", str(out),
                                 str(trunc)]) == 1
-        assert "multi-GPU" in capsys.readouterr().err
+        assert why in capsys.readouterr().err
 
 
 def test_memory_guard_warns_from_the_measured_envelope(capsys):

@@ -450,10 +450,11 @@ def test_checkcl_bees420_counts(bees420):
 
 
 def test_sharded_blur_note():
-    """One device: SKIPPED, as in the JAX package; more than one card: the
-    check waits for the multi-GPU slice."""
+    """One device: SKIPPED, as in the JAX package; several cards but one
+    rank: SKIPPED, naming --mesh, which runs the check over the ranks
+    (tests/test_torch_halo.py runs it over two)."""
     assert checkcl._sharded_blur_note(1) == "SKIPPED (1 device)"
-    assert "multi-GPU slice" in checkcl._sharded_blur_note(4)
+    assert "--mesh N" in checkcl._sharded_blur_note(4)
 
 
 @pytest.mark.slow
@@ -620,7 +621,8 @@ def test_cli_profile_writes_trace(crop_png, tmp_path):
 
 def test_clis_without_card_exit_1(monkeypatch, crop_png, tmp_path, capsys):
     """Without --cpu and without a card both command lines exit 1 with a
-    message, the kernel check included; --mesh stays refused."""
+    message, the kernel check and --mesh included (no rank falls back to
+    the CPU)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     png = str(crop_png / "c40.png")
     assert cli.main([png, str(tmp_path / "o.jpg")]) == 1
@@ -630,7 +632,8 @@ def test_clis_without_card_exit_1(monkeypatch, crop_png, tmp_path, capsys):
     assert butteraugli_cli.main([png, png]) == 1
     assert "--cpu" in capsys.readouterr().err
     assert cli.main(["--mesh", "2", png, str(tmp_path / "o.jpg")]) == 1
-    assert "Usage" in capsys.readouterr().err
+    assert "device='cpu'" in capsys.readouterr().err
+    assert not (tmp_path / "o.jpg").exists()
 
 
 def test_python_m_package_encodes_bees(tmp_path):
