@@ -85,18 +85,25 @@ counts set to 0 just before it and read just after:
     corpus's bytes equal to each image's serial padded encode, and one
     launch of each greedy kernel and compare of its passes in the first
     padded run of each corpus;
-  * the mesh phase, one image over several ranks
-    (guetzli_tpu_torch/parallel/; the card machine has one H100): (a) a
-    one-rank NCCL group: ``corpus_cli --distributed`` over the corpus
-    phase's six images and photo_mosaic1 through the mesh path at one
-    rank, each with the serial bytes; (b) two ranks sharing the card
-    through gloo (pinned host staging): ``sharded_blur`` of every sigma
-    on a 908x1444 plane against the single-rank blur, then q95 encodes of
-    bees96x64 and photo_mosaic1 over two bands (480 and 428 rows): golden
-    band, distance at or below target, whether the bytes equal one
-    rank's, kernel B launched once per rank over its band's block rows,
-    the walls against the serial encode's; (c) ``--checkcuda --mesh 2``
-    on bees96x64 (its blur(sharded) line); then bees96x64's memory
+  * the mesh phase, one image over several ranks and the sharded corpus
+    search step (guetzli_tpu_torch/parallel/; the card machine has one
+    H100): (a) a one-rank NCCL group: ``corpus_cli --distributed`` over
+    the corpus phase's six images, photo_mosaic1 and photo_mosaic1-420
+    through the mesh path at one rank, each with the serial bytes, and
+    the search step (parallel/corpus.py) on photo_mosaic1 and its mirror;
+    (b) two ranks sharing the card through gloo (pinned host staging):
+    ``sharded_blur`` of every sigma on a 908x1444 plane against the
+    single-rank blur, then q95 encodes of bees96x64, photo_mosaic1,
+    photo_mosaic1-420 (bands of 480 and 428 rows) and bees_d-420 (48 and
+    15 rows): golden band, distance at or below target, whether the bytes
+    equal one rank's, each greedy kernel (B, or B' and B'') launched once
+    per rank over its band's blocks, the walls against the serial
+    encode's; (c) ``--checkcuda --mesh 2`` on bees96x64 (its
+    blur(sharded) line); (d) the search step at (batch, tile) = (2, 1)
+    and (1, 2) against the one-rank step (the scores' and errors' largest
+    relative differences, within 1e-3; whether the new coefficients are
+    equal; kernel C once per rank per step over its lanes; the walls),
+    and dryrun_multichip over the two ranks; then bees96x64's memory
     envelope (memory_envelope) against the CLI's guard.
 
 Every phase that fails makes the script exit nonzero. The last two lines
@@ -173,7 +180,17 @@ SPARSE_FLIPS = 20000
 # (guetzli_tpu_torch/parallel/), on the card's one H100: a one-rank NCCL
 # group, and two ranks sharing the card through gloo.
 MESH_ENCODES = ("tests/fixtures/bees96x64.png",
-                "tests/corpus/photo_mosaic1.png")
+                "tests/corpus/photo_mosaic1.png",
+                "tests/corpus/photo_mosaic1-420.jpg",
+                "tests/corpus/bees_d-420.jpg")
+# The sharded corpus search step (parallel/corpus.py): photo_mosaic1 and
+# its left-right mirror, a batch of two same-geometry images; its
+# (batch, tile) layouts over two ranks; and the relative difference from
+# the one-rank step it is held to (the JAX package's own bar,
+# tests/test_parallel.py).
+STEP_IMAGE = "tests/corpus/photo_mosaic1.png"
+STEP_LAYOUTS = (2, 1)
+STEP_RTOL = 1e-3
 MESH_PLANE = (908, 1444)
 MESH_SEED = 11
 MESH_TIMEOUT = 600.0
@@ -1686,12 +1703,25 @@ def _mesh_blur(group):
 
 
 def _mesh_encode(group, path, out_dir):
-    """One rank's q95 encode of `path` over the group's mesh, the launch
-    counts set to 0 just before it and read just after."""
+    """One rank's q95 encode of `path` (a PNG, or a JPEG searched from its
+    coefficients) over the group's mesh, the launch counts set to 0 just
+    before it and read just after."""
+    from guetzli_tpu_torch.api import is_jpeg
     from guetzli_tpu_torch.io.png import read_png
     from guetzli_tpu_torch.search.processor import (Params, ProcessStats,
+                                                    process_jpeg_bytes,
                                                     process_rgb)
-    rgb, w, h = read_png((REPO / path).read_bytes())
+    data = (REPO / path).read_bytes()
+    if is_jpeg(data):
+        def encode():
+            return process_jpeg_bytes(params, data, stats, group.device,
+                                      group)
+    else:
+        rgb, w, h = read_png(data)
+
+        def encode():
+            return process_rgb(params, rgb, w, h, stats, group.device,
+                               group)
     params = Params()
     params.butteraugli_target = target()
     stats = ProcessStats()
@@ -1702,7 +1732,7 @@ def _mesh_encode(group, path, out_dir):
     group.barrier()
     t0 = time.time()
     try:
-        out = process_rgb(params, rgb, w, h, stats, group.device, group)
+        out = encode()
         torch.cuda.synchronize()
         wall = time.time() - t0
     finally:
@@ -1717,15 +1747,72 @@ def _mesh_encode(group, path, out_dir):
             "ctas": [(n, c) for n, c, _ev in ctas]}
 
 
+def _step_inputs(dev):
+    """The search step's operands (parallel/corpus.step_inputs) of
+    STEP_IMAGE and its left-right mirror."""
+    from guetzli_tpu_torch.io.png import read_png
+    from guetzli_tpu_torch.parallel import corpus
+    rgb, _w, _h = read_png((REPO / STEP_IMAGE).read_bytes())
+    return corpus.step_inputs([rgb, np.ascontiguousarray(rgb[:, ::-1])],
+                              dev)
+
+
+def _mesh_step(group, batch, args, out_dir):
+    """The sharded search step at (batch, world / batch) on STEP_IMAGE's
+    batch, twice (cold, then warm): its walls, kernel C's launches and
+    lanes of the warm step (the counts set to 0 just before it and read
+    just after), its outputs saved to out_dir."""
+    from guetzli_tpu_torch.kernels import tile_compare as kc
+    from guetzli_tpu_torch.parallel import corpus
+    mesh = corpus.make_mesh(group, batch)
+    h, w = args[2].shape[-2:]
+    step = corpus.make_search_step(mesh, -(-w // 8), -(-h // 8), w, h)
+    lanes, real = [], kc.tile_compare
+
+    def spy(cand, *a):
+        lanes.append(cand.shape[0])
+        return real(cand, *a)
+    walls = []
+    kc.tile_compare = spy
+    try:
+        for _ in range(2):
+            del lanes[:]
+            _reset_launches()
+            torch.cuda.synchronize()
+            group.barrier()
+            t0 = time.time()
+            out = step(*args, np.float32(1.0))
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+    finally:
+        kc.tile_compare = real
+    torch.save([o.cpu() for o in out], out_dir / (
+        "step_w%d_b%d_rank%d.pt" % (group.world, batch, group.rank)))
+    return {"walls": walls, "launches": kc.launches, "lanes": lanes,
+            "place": [mesh.b, mesh.t]}
+
+
 def _mesh_job(group, jobs, out_dir):
     """One rank of the mesh phase (run by cli.run_ranks): each job is
-    ("blur",) or ("encode", path); the rank's results go to
-    out_dir/rank<r>.json."""
+    ("blur",), ("encode", path), ("step", batch) or ("dryrun",); the
+    rank's results go to out_dir/rank<r>.json."""
+    from guetzli_tpu_torch.parallel import corpus
     out_dir = pathlib.Path(out_dir)
     res = {"rank": group.rank, "mode": group.mode}
+    args = None
     for job in jobs:
         if job[0] == "blur":
             res["blur"] = _mesh_blur(group)
+        elif job[0] == "step":
+            if args is None:
+                t0 = time.time()
+                args = _step_inputs(group.device)
+                res["step_inputs_s"] = time.time() - t0
+            res["step%d" % job[1]] = _mesh_step(group, job[1], args, out_dir)
+        elif job[0] == "dryrun":
+            t0 = time.time()
+            res["dryrun"] = corpus.dryrun_multichip(group)
+            res["dryrun"]["wall"] = time.time() - t0
         else:
             res[job[1]] = _mesh_encode(group, job[1], out_dir)
     (out_dir / ("rank%d.json" % group.rank)).write_text(json.dumps(res))
@@ -1743,22 +1830,117 @@ def _run_mesh(n, jobs, out_dir):
             for r in range(n)]
 
 
-def phase_mesh(dev, outputs, walls):
-    """One image over several ranks (guetzli_tpu_torch/parallel/): (a) a
-    one-rank NCCL group: corpus_cli --distributed over CORPUS and the
-    mesh path at one rank on photo_mosaic1, each with the serial bytes;
-    (b) two ranks sharing the card through gloo: the sharded blur of
-    every sigma against the single-rank blur, then q95 encodes of
-    MESH_ENCODES (golden band, distance at or below target; whether the
-    bytes equal one rank's; kernel B once per rank over its band's block
-    rows; the wall against the serial encode's); (c) --checkcuda with two
-    ranks (its blur(sharded) line)."""
-    from guetzli_tpu_torch.parallel.mesh import RowBands
+def _band_ctas(path, world):
+    """{greedy entry: [CTAs of each rank]} of a mesh encode of `path` over
+    `world` ranks: one CTA per block of the band's rows of the pass's grid
+    (8x8 blocks for B and B', 16x16 macroblocks for B'')."""
+    from guetzli_tpu_torch.api import _peek_geometry
     from guetzli_tpu_torch.kernels import zeroing_loop as zl
+    w, h = _peek_geometry((REPO / path).read_bytes())
+    passes = ((("444", 8),) if path.endswith(".png")
+              else (("420y", 8), ("420c", 16)))
+    return {zl.ENTRY[m]: [b.span(d).n * -(-w // d)
+                          for b in _bands(h, world)] for m, d in passes}
+
+
+def _bands(h, world):
+    """parallel/mesh.RowBands of every rank of `world` over h rows."""
+    from guetzli_tpu_torch.parallel.mesh import RowBands
 
     class _Shape:
-        def __init__(self, n, r):
-            self.world, self.rank = n, r
+        def __init__(self, r):
+            self.world, self.rank = world, r
+    return [RowBands(h, _Shape(r)) for r in range(world)]
+
+
+def _check_mesh_encode(path, ranks, root, outputs, walls, golden):
+    """Golden band, distance at or below target, whether the bytes equal
+    one rank's, each greedy kernel launched once per rank over its band's
+    blocks; logged with the walls against the serial encode's."""
+    out = (root / (pathlib.Path(path).name + ".jpg")).read_bytes()
+    recs = [r[path] for r in ranks]
+    want = _band_ctas(path, len(ranks))
+    got = {e: [[c for n, c in rc["ctas"] if n == e] for rc in recs]
+           for e in want}
+    log("mesh (b): %s q%d over %d ranks: %d bytes (golden %d, %+.2f%%; "
+        "one rank %d, equal: %s), distance %.4f; walls %s s against %.2f s "
+        "serial; greedy launches per rank, CTAs %s (band blocks %s); "
+        "launches %s"
+        % (path, QUALITY, len(ranks), len(out), golden,
+           100.0 * (len(out) - golden) / golden, len(outputs[path]),
+           out == outputs[path], recs[0]["distance"],
+           " / ".join("%.2f" % rc["wall"] for rc in recs), walls[path], got,
+           want, [rc["launches"] for rc in recs]))
+    _check_golden(path, out, golden)
+    if recs[0]["distance"] > target():
+        raise RuntimeError("%s: distance %.6f above target"
+                           % (path, recs[0]["distance"]))
+    if got != {e: [[c] for c in cs] for e, cs in want.items()}:
+        raise RuntimeError("%s: each greedy kernel must launch once per "
+                           "rank over its band's blocks" % path)
+
+
+def _check_steps(root, world, ranks):
+    """The search step of each layout of STEP_LAYOUTS on every rank
+    against the one-rank step: the scores' and errors' largest relative
+    differences, whether the new coefficients are equal, kernel C's
+    launches and lanes per rank (3 per block of the band of each of the
+    rank's images), the walls."""
+    base = torch.load(root / "step_w1_b1_rank0.pt")
+    nimg = base[0].shape[0]
+    h, w = _step_inputs_shape()
+    for batch in STEP_LAYOUTS:
+        tile = world // batch
+        bands = _bands(h, tile)
+        for r in ranks:
+            rec = r["step%d" % batch]
+            got = torch.load(root / ("step_w%d_b%d_rank%d.pt"
+                                     % (world, batch, r["rank"])))
+            rel = [float(((g - b).abs() / b.abs().clamp(min=1e-30)).max())
+                   for g, b in ((got[0], base[0]), (got[2], base[2]))]
+            same = torch.equal(got[1], base[1])
+            bt, tt = rec["place"]
+            lanes = [3 * bands[tt].blocks().n * -(-w // 8)
+                     * len(range(bt, nimg, batch))]
+            log("mesh (d): search step at (batch %d, tile %d), rank %d at "
+                "%s: scores %s, max rel. difference from one rank: scores "
+                "%.3g, errors %.3g; new coefficients equal: %s; C launches "
+                "%d, lanes %s (want %s); walls %s s (cold, warm)"
+                % (batch, tile, r["rank"], rec["place"],
+                   ["%.6f" % v for v in got[0].tolist()], rel[0], rel[1],
+                   same, rec["launches"], rec["lanes"], lanes,
+                   ["%.3f" % v for v in rec["walls"]]))
+            if rec["launches"] != 1 or rec["lanes"] != lanes:
+                raise RuntimeError("the search step must launch C once per "
+                                   "rank over its lanes")
+            for g, b in ((got[0], base[0]), (got[2], base[2])):
+                if not bool(((g - b).abs() <= STEP_RTOL
+                             + STEP_RTOL * b.abs()).all()):
+                    raise RuntimeError("the search step at (%d, %d) is off "
+                                       "the one-rank step" % (batch, tile))
+
+
+def _step_inputs_shape():
+    """(h, w) of STEP_IMAGE."""
+    from guetzli_tpu_torch.api import _peek_geometry
+    w, h = _peek_geometry((REPO / STEP_IMAGE).read_bytes())
+    return h, w
+
+
+def phase_mesh(dev, outputs, walls):
+    """One image over several ranks, and the sharded corpus search step
+    (guetzli_tpu_torch/parallel/): (a) a one-rank NCCL group:
+    corpus_cli --distributed over CORPUS, the mesh path at one rank on
+    photo_mosaic1 and photo_mosaic1-420, each with the serial bytes, and
+    the search step; (b) two ranks sharing the card through gloo: the
+    sharded blur of every sigma against the single-rank blur, then q95
+    encodes of MESH_ENCODES (golden band, distance at or below target;
+    whether the bytes equal one rank's; each greedy kernel (B, or B' and
+    B'') once per rank over its band's blocks; the wall against the
+    serial encode's); (c) --checkcuda with two ranks (its blur(sharded)
+    line); (d) the search step at (batch, tile) = (2, 1) and (1, 2)
+    against the one-rank step, kernel C once per rank per step, and
+    dryrun_multichip over the two ranks."""
     tmp = tempfile.TemporaryDirectory()
     root = pathlib.Path(tmp.name)
     # (a) One rank: corpus_cli --distributed in its own process.
@@ -1783,20 +1965,30 @@ def phase_mesh(dev, outputs, walls):
         if got != outputs[path]:
             raise RuntimeError("%s: corpus_cli --distributed gives other "
                                "bytes than the serial encode" % path)
-    mosaic = MESH_ENCODES[1]
-    one = _run_mesh(1, [("encode", mosaic)], root)[0]
-    rec = one[mosaic]
-    same = (root / (pathlib.Path(mosaic).name + ".jpg")).read_bytes() \
-        == outputs[mosaic]
-    log("mesh (a): %s over a one-rank %s group: %.2f s (serial %.2f s), %d "
-        "bytes, the serial bytes: %s; launches %s; B's CTAs %s"
-        % (mosaic, one["mode"], rec["wall"], walls[mosaic], rec["bytes"],
-           same, rec["launches"], rec["ctas"]))
-    if one["mode"] != "nccl" or not same:
-        raise RuntimeError("the one-rank mesh encode must run on NCCL and "
-                           "give the serial bytes")
+    one_paths = MESH_ENCODES[1:3]
+    one = _run_mesh(1, [("encode", p) for p in one_paths] + [("step", 1)],
+                    root)[0]
+    for path in one_paths:
+        rec = one[path]
+        same = (root / (pathlib.Path(path).name + ".jpg")).read_bytes() \
+            == outputs[path]
+        log("mesh (a): %s over a one-rank %s group: %.2f s (serial %.2f s), "
+            "%d bytes, the serial bytes: %s; launches %s; greedy CTAs %s"
+            % (path, one["mode"], rec["wall"], walls[path], rec["bytes"],
+               same, rec["launches"], rec["ctas"]))
+        if one["mode"] != "nccl" or not same:
+            raise RuntimeError("the one-rank mesh encode must run on NCCL "
+                               "and give the serial bytes")
+    rec = one["step1"]
+    log("mesh (a): search step on %s and its mirror over a one-rank group: "
+        "inputs %.2f s; C launches %d, lanes %s; walls %s s (cold, warm)"
+        % (STEP_IMAGE, one["step_inputs_s"], rec["launches"], rec["lanes"],
+           ["%.3f" % v for v in rec["walls"]]))
+    if rec["launches"] != 1:
+        raise RuntimeError("the one-rank search step must launch C once")
     # (b) Two ranks sharing the card.
-    ranks = _run_mesh(2, [("blur",)] + [("encode", p) for p in MESH_ENCODES],
+    ranks = _run_mesh(2, [("blur",)] + [("encode", p) for p in MESH_ENCODES]
+                      + [("step", b) for b in STEP_LAYOUTS] + [("dryrun",)],
                       root)
     log("mesh (b): 2 ranks, transport %s" % ranks[0]["mode"])
     for sigma, (diff, ms) in ranks[0]["blur"].items():
@@ -1808,33 +2000,7 @@ def phase_mesh(dev, outputs, walls):
             raise RuntimeError("sharded_blur sigma %s: %g" % (sigma, diff))
     golden = dict(E2E)
     for path in MESH_ENCODES:
-        out = (root / (pathlib.Path(path).name + ".jpg")).read_bytes()
-        recs = [r[path] for r in ranks]
-        h = int(np.frombuffer((REPO / path).read_bytes()[20:24], ">u4")[0])
-        bands = [RowBands(h, _Shape(2, r)).blocks() for r in range(2)]
-        w_blocks = -(-int(np.frombuffer((REPO / path).read_bytes()[16:20],
-                                        ">u4")[0]) // 8)
-        want_ctas = [b.n * w_blocks for b in bands]
-        b_ctas = [[c for n, c in rc["ctas"] if n == zl.ENTRY["444"]]
-                  for rc in recs]
-        log("mesh (b): %s q%d over 2 ranks: %d bytes (golden %d, %+.2f%%; "
-            "one rank %d, equal: %s), distance %.4f; walls %s s against "
-            "%.2f s serial; B's launches per rank %s, CTAs %s (band block "
-            "rows x %d: %s); launches %s"
-            % (path, QUALITY, len(out), golden[path],
-               100.0 * (len(out) - golden[path]) / golden[path],
-               len(outputs[path]), out == outputs[path],
-               recs[0]["distance"], " / ".join("%.2f" % rc["wall"]
-                                               for rc in recs),
-               walls[path], [len(c) for c in b_ctas], b_ctas, w_blocks,
-               want_ctas, [rc["launches"] for rc in recs]))
-        _check_golden(path, out, golden[path])
-        if recs[0]["distance"] > target():
-            raise RuntimeError("%s: distance %.6f above target"
-                               % (path, recs[0]["distance"]))
-        if b_ctas != [[c] for c in want_ctas]:
-            raise RuntimeError("%s: B must launch once per rank over its "
-                               "band's blocks" % path)
+        _check_mesh_encode(path, ranks, root, outputs, walls, golden[path])
     # (c) --checkcuda with two ranks.
     out_path = root / "check.jpg"
     r = subprocess.run(
@@ -1852,6 +2018,11 @@ def phase_mesh(dev, outputs, walls):
                            % r.stderr[-3000:])
     _check_golden(MESH_ENCODES[0], out_path.read_bytes(), golden[
         MESH_ENCODES[0]])
+    # (d) The search step over two ranks, and the dry run.
+    _check_steps(root, 2, ranks)
+    for r in ranks:
+        log("mesh (d): dryrun_multichip, rank %d: %s" % (r["rank"],
+                                                        r["dryrun"]))
     tmp.cleanup()
 
 

@@ -10,7 +10,7 @@ stops once its error reaches the block error limit (processor.cc:458-465).
 --checkcuda (alias --checkcl) first runs the kernel verification of
 checkcl.py on the input image (the clguetzli_test.cpp analog) and prints
 its report to stderr; --profile DIR writes a torch.profiler Chrome trace
-of the run to DIR/trace.json. --mesh N encodes one 4:4:4 image over N
+of the run to DIR/trace.json. --mesh N encodes one image over N
 ranks, processes that this command starts itself (run_ranks): each holds
 a band of the image's rows, on cuda:{rank % device_count} or, with
 --cpu, on the CPU, and the output's bytes are those of one device
@@ -42,7 +42,7 @@ Flags:
   --profile D  - Write a torch.profiler Chrome trace of the run to
                  D/trace.json.
   --mesh N     - Encode over N ranks, each on a band of the image's rows
-                 (4:4:4 input; the same bytes as one device).
+                 (the same bytes as one device).
 """
 
 # Memory guard: the reference's contract values (guetzli.cc:42-45) decide
@@ -174,14 +174,6 @@ def _pixels(data):
     return rgb, jpg.width, jpg.height
 
 
-def _is_420(data):
-    from guetzli_tpu_torch.codec import reader
-    try:
-        return reader.read_jpeg(data).is_420()
-    except reader.JpegError:
-        return False
-
-
 def _run(in_name, out_name, verbose, fast_zeroing, check, device, quality,
          memlimit_mb, mesh=1) -> int:
     if in_name == "-":
@@ -213,11 +205,6 @@ def _run(in_name, out_name, verbose, fast_zeroing, check, device, quality,
         sys.stderr.write("%s\n" % e)
         return 1
     if mesh > 1:
-        if is_jpeg(data) and _is_420(data):
-            sys.stderr.write("--mesh: a 4:2:0 input over several ranks comes "
-                             "with the next slice of the port; encode it "
-                             "without --mesh\n")
-            return 1
         return run_ranks(mesh, _encode_job, data, out_name, verbose,
                          fast_zeroing, check, quality, device=device)
     pix = None if is_jpeg(data) else (rgb, w, h)

@@ -441,10 +441,11 @@ class Comparator:
     block weights are every rank's rows gathered, so every rank's host
     search reads the same numbers. None reads GUETZLI_TPU_MESH
     (mesh_from_env); False is one device whatever the environment says.
-    Under a mesh only the 4:4:4 compares run, at exact geometry, and the
-    routes that keep per-image device state stay off, as in the JAX
-    package: the quant waves, the sparse back end (and in the search,
-    speculation and the pipeline).
+    Under a mesh the compares (4:4:4 and 4:2:0) run at exact geometry,
+    the frozen zeroing state is this rank's block rows, and the routes
+    that keep per-image device state stay off, as in the JAX package: the
+    quant waves, the sparse back end (and in the search, speculation and
+    the pipeline).
 
     ``batcher`` (a CompareBatcher, set by the lockstep corpus driver) makes
     a padded comparator's dispatch_compare and
@@ -579,20 +580,30 @@ class Comparator:
                                  u.bw, u.bh, self.width, self.height)
 
     def _band_compare(self, img):
-        """(score over every rank, the band's diffmap rows) of a 4:4:4
-        image under a mesh."""
-        if not img.is_444():
-            raise NotImplementedError(
-                "a 4:2:0 encode over several ranks comes with the next "
-                "slice of the port (parallel/mesh.py)")
-        coeffs = put_blocks(self.bands, img.coeffs, self.device, axis=1)
+        """(score over every rank, the band's diffmap rows) of a 4:4:4 or
+        4:2:0 image under a mesh."""
         px = self.bands.pixels()
         dmap = self.xyb0.new_zeros((0, self.width))
         if px.n:
-            xyb1 = banded.opsin(banded.linear_rgb(coeffs, img.bw, self.bands,
-                                                  self.width), px)
+            if img.is_444():
+                lin = banded.linear_rgb(
+                    put_blocks(self.bands, img.coeffs, self.device, axis=1),
+                    img.bw, self.bands, self.width)
+            else:
+                y, u, _v = img.comps
+                lin = banded.linear_rgb_420(
+                    put_blocks(self.bands, y.coeffs, self.device),
+                    self._band_chroma(img), y.bw, u.bw, self.bands,
+                    self.width)
+            xyb1 = banded.opsin(lin, px)
             dmap = banded.diffmap(self.xyb0, xyb1, self.bands)
         return banded.score(dmap, self.bands), dmap
+
+    def _band_chroma(self, img):
+        """This rank's chroma block rows of a 4:2:0 image, [2, NBc_band,
+        64] on the device."""
+        return torch.stack([put_blocks(self.bands, c.coeffs, self.device,
+                                       div=16) for c in img.comps[1:]])
 
     def fetch_compare_plain(self, handle):
         handle = _resolved(handle)
@@ -777,8 +788,16 @@ class Comparator:
         u, v = img.comps[1], img.comps[2]
         w, h = self.width, self.height
         bw, bh = (w + 7) // 8, (h + 7) // 8
+        # Under a mesh: this rank's block rows [b0, b1), whose pixels are
+        # the band's rows from y0 on.
+        b0, b1, y0 = 0, bh, 0
         g = self.geom
-        if g is None:
+        if self.bands is not None:
+            bs = self.bands.blocks()
+            b0, b1, y0 = bs.lo, bs.hi, self.bands.lo
+            planes = banded.chroma_bytes(self._band_chroma(img), u.bw,
+                                         self.bands, w)
+        elif g is None:
             planes = torch.stack([
                 img_ops.chroma_byte_plane(self._up(c.coeffs), c.bw, c.bh, w,
                                           h) for c in (u, v)])   # [2, h, w]
@@ -788,10 +807,10 @@ class Comparator:
                 self._up(np.stack([self._pad(c, cbwp, cbhp)
                                    for c in (u, v)])),
                 cbwp, cbhp, g.wp, g.hp, self._w, self._h)  # [2, hp, wp]
-        gx = np.minimum(np.tile(np.arange(bw), bh)[:, None] * 8
+        gx = np.minimum(np.tile(np.arange(bw), b1 - b0)[:, None] * 8
                         + np.arange(8)[None, :], w - 1)        # [NB, 8]
-        gy = np.minimum(np.repeat(np.arange(bh), bw)[:, None] * 8
-                        + np.arange(8)[None, :], h - 1)
+        gy = np.minimum(np.repeat(np.arange(b0, b1), bw)[:, None] * 8
+                        + np.arange(8)[None, :], h - 1) - y0
         out = planes[:, self._up(gy)[:, :, None], self._up(gx)[:, None, :]]
         out = out.permute(1, 0, 2, 3).contiguous()
         return out if g is None else self._pad_grid(out, bw, bh, g.bwp,
@@ -806,17 +825,27 @@ class Comparator:
         y = img.comps[0]
         w, h = self.width, self.height
         g = self.geom
-        if g is None:
-            coeffs, grid = self._up(y.coeffs), (y.bw, y.bh, w, h)
+        # Under a mesh: this rank's macroblock rows [m0, m1), whose pixels
+        # are the band's rows from y0 on.
+        m0, m1, y0 = 0, cbh, 0
+        if self.bands is not None:
+            ms = self.bands.span(16)
+            m0, m1, y0 = ms.lo, ms.hi, self.bands.lo
+            plane = banded.y_bytes(put_blocks(self.bands, y.coeffs,
+                                              self.device), y.bw,
+                                   self.bands, w)
         else:
-            coeffs = self._up(self._pad(y, g.bwp, g.bhp))
-            grid = (g.bwp, g.bhp, g.wp, g.hp)
-        plane = img_ops.byte_plane(img_ops.blocks_to_plane(
-            img_ops.idct_blocks(coeffs) << 4, *grid))
-        gx = np.minimum(np.tile(np.arange(cbw), cbh)[:, None] * 16
+            if g is None:
+                coeffs, grid = self._up(y.coeffs), (y.bw, y.bh, w, h)
+            else:
+                coeffs = self._up(self._pad(y, g.bwp, g.bhp))
+                grid = (g.bwp, g.bhp, g.wp, g.hp)
+            plane = img_ops.byte_plane(img_ops.blocks_to_plane(
+                img_ops.idct_blocks(coeffs) << 4, *grid))
+        gx = np.minimum(np.tile(np.arange(cbw), m1 - m0)[:, None] * 16
                         + np.arange(16)[None, :], w - 1)
-        gy = np.minimum(np.repeat(np.arange(cbh), cbw)[:, None] * 16
-                        + np.arange(16)[None, :], h - 1)
+        gy = np.minimum(np.repeat(np.arange(m0, m1), cbw)[:, None] * 16
+                        + np.arange(16)[None, :], h - 1) - y0
         out = plane[self._up(gy)[:, :, None], self._up(gx)[:, None, :]]
         return out if g is None else self._pad_grid(out, cbw, cbh,
                                                     g.wp // 16, g.hp // 16)
@@ -828,6 +857,12 @@ class Comparator:
         bucket NBc is the bucket's chroma grid."""
         if "neighborhoods" in self.frozen_state:
             return self.frozen_state["neighborhoods"]
+        if self.bands is not None:
+            # This rank's macroblock rows, from the band's subsampled rows
+            # and one row of each neighbour's.
+            return tuple(banded.neighborhoods(
+                self._band_chroma(img), img.comps[1].bw, self.bands,
+                self.width))
         ws, hs = (img.width + 1) // 2, (img.height + 1) // 2
         out = []
         for c in (img.comps[1], img.comps[2]):
@@ -846,24 +881,31 @@ class Comparator:
         2x2 children of each 16x16 macroblock: (xyb0_tiles, scales, ysel,
         xsel, valid [NBc, 2, 2] bool); invalid children (outside the
         image) gather block 0. On a bucket the macroblock axis is the
-        bucket's chroma grid, the children strided over its block grid."""
+        bucket's chroma grid, the children strided over its block grid.
+        Under a mesh: this rank's macroblock rows, whose children are its
+        own block rows (block_state); their validity is the whole grid's,
+        and an invalid child gathers the band's first block."""
         if "children" in self.frozen_state:
             return self.frozen_state["children"]
         xyb0_tiles, scales, ysel, xsel = self.block_state(1, 1)
         bw, bh = (self.width + 7) // 8, (self.height + 7) // 8
         stride = bw
+        m0, m1, r0 = 0, cbh, 0
         if self.geom is not None:
             cbw, cbh = self.geom.wp // 16, self.geom.hp // 16
-            stride = self.geom.bwp
-        cbx = np.tile(np.arange(cbw), cbh)
-        cby = np.repeat(np.arange(cbh), cbw)
+            m1, stride = cbh, self.geom.bwp
+        if self.bands is not None:
+            ms = self.bands.span(16)
+            m0, m1, r0 = ms.lo, ms.hi, self.bands.blocks().lo
+        cbx = np.tile(np.arange(cbw), m1 - m0)
+        cby = np.repeat(np.arange(m0, m1), cbw)
         ix = np.arange(2)
         child_x = cbx[:, None, None] * 2 + ix[None, None, :]   # [NBc,1,2]
         child_y = cby[:, None, None] * 2 + ix[None, :, None]   # [NBc,2,1]
         valid = (child_x < bw) & (child_y < bh)                # [NBc,2,2]
-        idx = self._up(np.where(valid, child_y * stride + child_x, 0)
+        idx = self._up(np.where(valid, (child_y - r0) * stride + child_x, 0)
                        .reshape(-1))
-        nbc = cbw * cbh
+        nbc = cbw * (m1 - m0)
 
         def g(a):
             return a[idx].reshape((nbc, 2, 2) + tuple(a.shape[1:]))

@@ -12,23 +12,29 @@ import numpy as np
 import torch
 
 
-def fancy_upsample(sub, w, h):
+def fancy_upsample(sub, w, h, y0=0, hs=None, s0=0):
     """x16 subsampled plane [..., hs, ws] int32 -> full-res x16 pixels
     [..., h, w].
 
     out[y,x] = (9*s[cy,cx] + 3*s[cy2,cx] + 3*s[cy,cx2] + s[cy2,cx2]) >> 4
     with (cx, cy) = (x>>1, y>>1) and cx2/cy2 the parity-directed neighbor,
-    clamped at the plane's border (the kSubsampledEdgeSize edge fill)."""
-    hs, ws = sub.shape[-2:]
+    clamped at the plane's border (the kSubsampledEdgeSize edge fill).
+
+    On a band of rows (parallel/banded.py): the output's rows [y0, y0 +
+    h) of an image whose subsampled plane has `hs` rows, `sub` holding
+    the plane's rows from s0 on (every row those output rows read)."""
+    ws = sub.shape[-1]
+    if hs is None:
+        hs = sub.shape[-2]
     dev = sub.device
     x = torch.arange(w, device=dev)
-    y = torch.arange(h, device=dev)
+    y = torch.arange(y0, y0 + h, device=dev)
     cx = x >> 1
     cy = y >> 1
     cx2 = (cx + (x & 1) * 2 - 1).clamp(0, ws - 1)
     cy2 = (cy + (y & 1) * 2 - 1).clamp(0, hs - 1)
-    r1 = sub[..., cy, :]
-    r2 = sub[..., cy2, :]
+    r1 = sub[..., cy - s0, :]
+    r2 = sub[..., cy2 - s0, :]
     return (9 * r1[..., cx] + 3 * r1[..., cx2] + 3 * r2[..., cx]
             + r2[..., cx2]) >> 4
 
@@ -55,19 +61,25 @@ def fancy_upsample_dyn(sub, ws, hs):
             + 3 * r2[..., cx] + torch.gather(r2, 2, ix2)) >> 4
 
 
-def neighborhoods_10x10(sub, bw, bh):
-    """Per-block 10x10 subsampled neighborhoods [NB, 10, 10] (clamped):
+def neighborhoods_10x10(sub, bw, bh, by0=0, hs=None, s0=0):
+    """Per-block 10x10 subsampled neighborhoods [..., NB, 10, 10] of a
+    plane [..., hs, ws] (clamped):
     rows/cols -1..8 of each 8x8 block of the plane, border entries clamped
-    to the plane (clguetzli.cl:3440-3639)."""
-    hs, ws = sub.shape
+    to the plane (clguetzli.cl:3440-3639).
+
+    On a band of rows: the blocks of block rows [by0, by0 + bh) of a
+    plane of `hs` rows, `sub` holding its rows from s0 on."""
+    ws = sub.shape[-1]
+    if hs is None:
+        hs = sub.shape[-2]
     bx = np.tile(np.arange(bw), bh)
-    by = np.repeat(np.arange(bh), bw)
+    by = np.repeat(np.arange(by0, by0 + bh), bw)
     ix = np.arange(-1, 9)
     gx = np.clip(bx[:, None] * 8 + ix[None, :], 0, ws - 1)   # [NB, 10]
-    gy = np.clip(by[:, None] * 8 + ix[None, :], 0, hs - 1)
+    gy = np.clip(by[:, None] * 8 + ix[None, :], 0, hs - 1) - s0
     gx = torch.as_tensor(gx, device=sub.device)
     gy = torch.as_tensor(gy, device=sub.device)
-    return sub[gy[:, :, None], gx[:, None, :]]
+    return sub[..., gy[:, :, None], gx[:, None, :]]
 
 
 def upsample_16x16_from_neighborhood(neigh):

@@ -1,12 +1,14 @@
-"""The whole-image compare of one 4:4:4 image on a band of its rows.
+"""The whole-image compare of one image on a band of its rows.
 
-The exact-geometry chain of comparator._full_compare and the block
-weights (comparator._weights_all_radii_impl) cut into row bands
+The exact-geometry chain of comparator._full_compare (4:4:4) and
+_full_compare_420 and the block weights
+(comparator._weights_all_radii_impl) cut into row bands
 (parallel/mesh.RowBands): each rank computes the rows of every plane
 that fall in its band, and each stencil stage first takes the rows it
 reads past the band's edges from its neighbours (parallel/halo.py):
 
   stage                         rows read past the band   fill
+  4:2:0 chroma upsample         1 subsampled row          (clamped)
   opsin blur (sigma 1.1)        2 (3 with the step)       0
   mask_high_intensity_change    1                         (masked)
   edge_detector_map             10: 7 of the 8-row
@@ -31,6 +33,15 @@ image's size reads the global height. The diffmap's inner region starts
 at row 2, so its blur runs on the bands shifted by 2 rows
 (RowBands.span(shift=2)); its step of 2 keeps the grid, as 2 is even.
 
+A 4:2:0 band holds whole macroblock rows (48 is a multiple of 16): its
+chroma block rows' IDCT gives the subsampled plane's rows [lo/2,
+min(hs, ceil(hi/2))), and the fancy upsample reads one subsampled row
+past them each way. Those rows come by a halo exchange; each read's
+row is clamped to the whole plane before it is shifted into the band,
+so the exchange's fill past the image is never read (the edge row is
+read instead, as on one device). lo is even, so a row's parity is its
+global row's.
+
 On the CPU one more op needs care: the sRGB power (ops/image.py). The
 CPU's vectorized pow and its scalar tail round 6 of the 256 byte values
 differently, and the tail is the last elements of the whole [3, H, W]
@@ -47,6 +58,7 @@ from guetzli_tpu_torch import consts
 from guetzli_tpu_torch.ops import blockdiff as bd
 from guetzli_tpu_torch.ops import diffmap as dm
 from guetzli_tpu_torch.ops import image as img_ops
+from guetzli_tpu_torch.ops import upsample as us
 from guetzli_tpu_torch.ops.fp import sqrt
 from guetzli_tpu_torch.ops.opsin import opsin_from_blurred
 from guetzli_tpu_torch.parallel.halo import (halo_exchange_rows, pmax_scalar,
@@ -90,6 +102,52 @@ def linear_rgb(coeffs, bw, bands, w):
     px = bands.pixels()
     srgb = img_ops.coeffs_to_srgb(coeffs, bw, bands.blocks().n, w, px.n)
     return _srgb_to_linear(srgb, px, w)
+
+
+def _sub_rows(coeffs, cbw, bands, ws):
+    """The band's rows of x16 subsampled chroma planes from its chroma
+    block rows coeffs [..., NBc_band, 64] -> (ext [..., s.n + 2, ws], s):
+    s the band's Span of the subsampled plane's rows, ext its rows with
+    one row of the neighbours' (or a fill) above and below."""
+    s = bands.span(2, size=(bands.height + 1) // 2)
+    sub = img_ops.blocks_to_plane(img_ops.idct_blocks(coeffs) << 4, cbw,
+                                  bands.span(16).n, ws, s.n)
+    return halo_exchange_rows(sub, 1, 0, s), s
+
+
+def chroma_bytes(coeffs, cbw, bands, w):
+    """img_ops.chroma_byte_plane of the band's pixel rows: the band's
+    chroma block rows [..., NBc_band, 64] -> bytes [..., n, W]."""
+    px = bands.pixels()
+    ext, s = _sub_rows(coeffs, cbw, bands, (w + 1) // 2)
+    return img_ops.byte_plane(us.fancy_upsample(ext, w, px.n, px.lo, s.size,
+                                                s.lo - 1))
+
+
+def neighborhoods(coeffs, cbw, bands, w):
+    """ops/upsample.neighborhoods_10x10 of the band's macroblocks: the
+    band's chroma block rows [..., NBc_band, 64] -> [..., NBc_band, 10,
+    10]."""
+    ext, s = _sub_rows(coeffs, cbw, bands, (w + 1) // 2)
+    ms = bands.span(16)
+    return us.neighborhoods_10x10(ext, cbw, ms.n, ms.lo, s.size, s.lo - 1)
+
+
+def y_bytes(coeffs, bw, bands, w):
+    """The Y byte plane of the band's pixel rows from its Y block rows
+    [NB_band, 64]: no halo."""
+    return img_ops.byte_plane(img_ops.blocks_to_plane(
+        img_ops.idct_blocks(coeffs) << 4, bw, bands.blocks().n, w,
+        bands.pixels().n))
+
+
+def linear_rgb_420(y, uv, ybw, cbw, bands, w):
+    """The band's linear RGB [3, n, W] of a 4:2:0 coefficient image: its
+    Y block rows y [NB_band, 64] and chroma block rows uv [2, NBc_band,
+    64] (img_ops.coeffs420_to_srgb, then the sRGB power)."""
+    ub, vb = chroma_bytes(uv, cbw, bands, w)
+    srgb = img_ops.ycbcr_to_rgb(y_bytes(y, ybw, bands, w), ub, vb)
+    return _srgb_to_linear(srgb, bands.pixels(), w)
 
 
 def opsin(lin, px):

@@ -21,6 +21,11 @@ The collectives the port needs are the methods of ``Group``: the halo
 rows' point-to-point exchange (parallel/halo.py), a max all-reduce of
 the score, and an all-gather of per-band rows (the greedy rails and the
 block weights). Every rank must issue them in the same order.
+
+``Group.subgroup`` makes a Group of some of the ranks (the rows and
+columns of parallel/corpus.py's ('batch', 'tile') mesh). A Group speaks
+in its own ranks, 0 .. world - 1; its point-to-point peers are mapped to
+the global ranks that torch.distributed's P2POp takes.
 """
 
 import datetime
@@ -34,18 +39,31 @@ _GROUP = None
 
 
 class Group:
-    """This process's place in the group: rank, world, device, mode."""
+    """This process's place in the group: rank, world, device, mode.
 
-    def __init__(self, rank, world, device, mode, nccl=None):
+    pg: the process group of the tensor collectives (NCCL's in mode
+    "nccl"; None: the default, world-wide gloo group); gloo: the gloo
+    group of the barrier (None: the default one); ranks: the global rank
+    of each of this group's ranks (None: the world, in order)."""
+
+    def __init__(self, rank, world, device, mode, pg=None, gloo=None,
+                 ranks=None, timeout=None):
         self.rank = rank
         self.world = world
         self.device = device
         self.mode = mode
-        self._nccl = nccl
+        self._pg = pg
+        self._gloo = gloo
+        self._ranks = ranks
+        self._timeout = timeout
 
     def __repr__(self):
         return "Group(rank=%d, world=%d, device=%s, mode=%s)" % (
             self.rank, self.world, self.device, self.mode)
+
+    def _global(self, rank):
+        """The global rank of this group's `rank`."""
+        return rank if self._ranks is None else self._ranks[rank]
 
     def _wire(self, t):
         """The tensor the transport sends: itself, or a pinned host copy."""
@@ -66,12 +84,13 @@ class Group:
         order. Both sides of a pair list each other."""
         ops, bufs = [], []
         for peer, t in sends:
-            ops.append(dist.P2POp(dist.isend, self._wire(t), peer,
-                                  group=self._nccl))
+            ops.append(dist.P2POp(dist.isend, self._wire(t),
+                                  self._global(peer), group=self._pg))
         for peer, shape, dtype in recvs:
             b = self._buffer(shape, dtype)
             bufs.append(b)
-            ops.append(dist.P2POp(dist.irecv, b, peer, group=self._nccl))
+            ops.append(dist.P2POp(dist.irecv, b, self._global(peer),
+                                  group=self._pg))
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
@@ -82,7 +101,7 @@ class Group:
         w = self._wire(t)
         if w is t or w.data_ptr() == t.data_ptr():
             w = w.clone()
-        dist.all_reduce(w, op=dist.ReduceOp.MAX, group=self._nccl)
+        dist.all_reduce(w, op=dist.ReduceOp.MAX, group=self._pg)
         return w.to(self.device)
 
     def all_gather_rows(self, t, counts):
@@ -93,12 +112,29 @@ class Group:
         pad[:t.shape[0]] = t
         w = self._wire(pad)
         parts = [self._buffer(w.shape, w.dtype) for _ in range(self.world)]
-        dist.all_gather(parts, w, group=self._nccl)
+        dist.all_gather(parts, w, group=self._pg)
         return torch.cat([p[:n].to(self.device)
                           for p, n in zip(parts, counts)])
 
     def barrier(self):
-        dist.barrier()
+        dist.barrier(group=self._gloo)
+
+    def subgroup(self, ranks):
+        """The Group of this group's `ranks` (ascending), or None on a
+        rank outside them. Every rank of the world (torch.distributed's
+        default group) must call it, with the same ranks, in the same
+        order of calls."""
+        glob = [self._global(r) for r in ranks]
+        wait = self._timeout
+        gloo = dist.new_group(glob, timeout=wait, backend="gloo")
+        pg = gloo
+        if self.mode == "nccl":
+            pg = dist.new_group(glob, timeout=wait, backend="nccl")
+        me = self._global(self.rank)
+        if me not in glob:
+            return None
+        return Group(glob.index(me), len(glob), self.device, self.mode, pg,
+                     gloo, glob, wait)
 
 
 def _rank_device(rank, device):
@@ -146,7 +182,7 @@ def init(world, rank, init_method, device=None, timeout=120.0):
                          % (world, mode, "cpu" if dev.type == "cpu"
                             else "cuda:{rank %% %d}"
                             % torch.cuda.device_count()))
-    _GROUP = Group(rank, world, dev, mode, nccl)
+    _GROUP = Group(rank, world, dev, mode, nccl, timeout=wait)
     return _GROUP
 
 

@@ -97,11 +97,12 @@ def mesh_from_env():
     return group
 
 
-def put_blocks(bands, a, device, axis=0):
-    """This rank's block rows of a host per-block array (row-major 8x8
-    blocks on `axis`) on `device`: the counterpart of the JAX package's
+def put_blocks(bands, a, device, axis=0, div=8):
+    """This rank's block rows of a host per-block array (row-major blocks
+    of `div` pixel rows on `axis`: 8, or 16 for a 4:2:0 image's chroma
+    and macroblocks) on `device`: the counterpart of the JAX package's
     upload sharded over the mesh's block axis."""
-    s = bands.blocks()
+    s = bands.span(div)
     bw = a.shape[axis] // s.size
     part = np.take(a, np.arange(s.lo * bw, s.hi * bw), axis=axis)
     return torch.as_tensor(np.ascontiguousarray(part), device=device)

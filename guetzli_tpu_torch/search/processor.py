@@ -487,7 +487,7 @@ class Processor:
                 self.comparator.device, mode=mode, real_index=real_index,
                 lookahead=lookahead, new_model=self.params.new_zeroing_model,
                 early_exit=self.params.zeroing_early_exit, fused=True,
-                bands=self.comparator.bands)
+                bands=self.comparator.bands, factor=grid.factor_y)
         self.stats.inc("zeroing_passes")
         self.comparator.finish_block_comparisons()
         del blocks, orig, aux

@@ -52,24 +52,38 @@ def _compare_kernel(mode):
             else partial(tile_compare_lanes, mode=mode))
 
 
-def candidate_scores_host(blocks, orig_blocks, comp_mask, new_model=True):
+def candidate_scores(blocks, orig_blocks, comp_mask, new_model=True):
     """Zeroing priority of each (channel, coeff) slot (processor.cc:
-    393-409), float32 elementwise. Lower = zeroed earlier; invalid slots
-    (DC, zero coefficients, masked channels) get +inf."""
+    393-409) of tensors [NB, 3, 64] on any device -> [NB, K] float32 on
+    it (JAX search/zeroing.candidate_scores), float32 elementwise. Lower =
+    zeroed earlier; invalid slots (DC, zero coefficients, masked channels)
+    get +inf."""
     nb = blocks.shape[0]
-    absorig = np.abs(orig_blocks).astype(np.float32)
+    dev = blocks.device
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    absorig = orig_blocks.abs().to(torch.float32)
     if new_model:
-        score = (absorig * np.float32(consts.ZEROING_CSF)[None]
-                 + np.float32(consts.ZEROING_BIAS)[None])
+        score = absorig * t(consts.ZEROING_CSF)[None] \
+            + t(consts.ZEROING_BIAS)[None]
     else:
-        zigzag = consts.JPEG_ZIGZAG_ORDER.astype(np.float32)
-        score = ((absorig - zigzag[None, None] / np.float32(64.0))
-                 * np.float32(consts.ZEROING_OLD_WEIGHT)[None, :, None]
-                 / np.float32(consts.OLD_CSF)[None, None])
-    chan_ok = np.array([(comp_mask >> c) & 1 for c in range(3)], bool)
-    k_ok = np.arange(64) >= 1
+        zigzag = t(consts.JPEG_ZIGZAG_ORDER)
+        score = ((absorig - zigzag[None, None] / 64.0)
+                 * t(consts.ZEROING_OLD_WEIGHT)[None, :, None]
+                 / t(consts.OLD_CSF)[None, None])
+    chan_ok = torch.tensor([bool((comp_mask >> c) & 1) for c in range(3)],
+                           device=dev)
+    k_ok = torch.arange(64, device=dev) >= 1
     valid = (blocks != 0) & chan_ok[None, :, None] & k_ok[None, None, :]
-    return np.where(valid, score, np.inf).reshape(nb, K)
+    return torch.where(valid, score, torch.inf).reshape(nb, K)
+
+
+def candidate_scores_host(blocks, orig_blocks, comp_mask, new_model=True):
+    """candidate_scores of numpy arrays on the host, as numpy."""
+    return candidate_scores(torch.as_tensor(np.ascontiguousarray(blocks)),
+                            torch.as_tensor(np.ascontiguousarray(orig_blocks)),
+                            comp_mask, new_model).numpy()
 
 
 def _argsort_rows_stable(scores):
@@ -217,18 +231,20 @@ def csr_from_rails(bank_idx, bank_err, perm, inv_perm, limit_np,
 def compute_zeroing_csr(blocks, orig_blocks, limit, aux, comp_mask, device,
                         mode="444", real_index=None, lookahead=3,
                         new_model=True, early_exit=False, fused=True,
-                        bands=None):
+                        bands=None, factor=1):
     """Greedy zeroing of every block + CSR compaction (the port of
     compute_zeroing_csr_staged). See greedy_rails and csr_from_rails.
-    Under a mesh (`bands`, parallel/mesh.RowBands; 4:4:4, exact
-    geometry) the greedy loop runs on this rank's block rows alone, with
-    `aux` the comparator's state of those rows, and the rails of every
-    rank are gathered before the compaction, so every rank builds the
-    same CSR."""
+    Under a mesh (`bands`, parallel/mesh.RowBands; exact geometry) the
+    greedy loop runs on this rank's rows of the pass's grid alone (its
+    blocks are 8 * `factor` pixels high: 1 for the 4:4:4 and 4:2:0 Y
+    passes, 2 for the chroma pass's macroblocks), with `aux` the
+    comparator's state of those rows, and the rails of every rank are
+    gathered before the compaction, so every rank builds the same CSR."""
     if bands is not None:
         return _zeroing_csr_banded(blocks, orig_blocks, limit, aux,
                                    comp_mask, device, mode, lookahead,
-                                   new_model, early_exit, fused, bands)
+                                   new_model, early_exit, fused,
+                                   bands.span(8 * factor))
     if blocks.shape[0] == 0:
         n = 0 if real_index is None else len(real_index)
         return (np.zeros(n + 1, np.int64), np.empty(0, np.int32),
@@ -240,11 +256,11 @@ def compute_zeroing_csr(blocks, orig_blocks, limit, aux, comp_mask, device,
 
 def _zeroing_csr_banded(blocks, orig_blocks, limit, aux, comp_mask, device,
                         mode, lookahead, new_model, early_exit, fused,
-                        bands):
-    """compute_zeroing_csr of this rank's block rows, the rails
-    all-gathered in block order. The blocks are independent, so each
-    block's rails are those of the single-device loop."""
-    bs = bands.blocks()
+                        bs):
+    """compute_zeroing_csr of this rank's block rows (bs, a Span of the
+    pass's grid), the rails all-gathered in block order. The blocks are
+    independent, so each block's rails are those of the single-device
+    loop."""
     bw = blocks.shape[0] // bs.size
     sl = slice(bs.lo * bw, bs.hi * bw)
     limit = np.asarray(limit, dtype=np.float32)
@@ -259,7 +275,7 @@ def _zeroing_csr_banded(blocks, orig_blocks, limit, aux, comp_mask, device,
         idx = torch.zeros((0, K), dtype=torch.int32, device=device)
         err = torch.zeros((0, K), dtype=torch.float32, device=device)
     counts = [c * bw for c in bs.counts()]
-    idx = bands.group.all_gather_rows(idx.contiguous(), counts)
-    err = bands.group.all_gather_rows(err.contiguous(), counts)
+    idx = bs.group.all_gather_rows(idx.contiguous(), counts)
+    err = bs.group.all_gather_rows(err.contiguous(), counts)
     ident = np.arange(blocks.shape[0], dtype=np.int64)
     return csr_from_rails(idx, err, ident, ident, limit)
