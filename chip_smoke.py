@@ -104,16 +104,32 @@ counts set to 0 just before it and read just after:
     relative differences, within 1e-3; whether the new coefficients are
     equal; kernel C once per rank per step over its lanes; the walls),
     and dryrun_multichip over the two ranks; then bees96x64's memory
-    envelope (memory_envelope) against the CLI's guard.
+    envelope (memory_envelope) against the CLI's guard;
+  * the knobs phase, the JAX package's remaining variables: the
+    EXACT_LUT variants of A, A', A'', B, B', B'' (the DY reads by table)
+    on the mosaics' states against their plain versions under the knob,
+    bit for bit (B, B', B'' both rails over the whole pass), each timed
+    beside its closed form, and kernel C unmoved by the knob; bees96x64
+    and bees_d-420 encoded under each of KNOB_SETTINGS (golden band,
+    distance at or below target; the route and opt-out settings with
+    the default bytes), with each encode's wall, backend_serialize and
+    zeroing_loop walls and launches; photo_mosaic1's 4:4:4 pass through
+    the staged and full-batch zeroing routes against the fused kernel
+    (CSR equal, walls); and a padded compare of photo_mosaic1 with the
+    one-hot selections (bit for bit) and the lane-safe forms (within
+    1e-4), ms each against the default's.
 
 Every phase that fails makes the script exit nonzero. The last two lines
-of standard output are the kernels' JSON record and {"ok": true,
-"device": {...}}.
+of standard output are the kernels' JSON record (the seven kernels and
+the six EXACT_LUT variants, "+exact_lut", with their launches in the
+knobs phase's EXACT_LUT=1 encodes) and {"ok": true, "device": {...}}.
 
 Without a CUDA device, or outside the repository, it exits nonzero and
 prints no result. ``python3 chip_smoke.py padded`` builds the kernels and
 runs the padded phase alone, ``python3 chip_smoke.py mesh`` the mesh and
-memory phases (no result lines).
+memory phases, ``python3 chip_smoke.py knobs`` the knobs phase,
+``python3 chip_smoke.py kernels`` the seven kernels' phases (no result
+lines).
 """
 
 import contextlib
@@ -142,6 +158,8 @@ E2E = [("tests/fixtures/bees96x64.png", 2364),
 BAND = 0.02
 QUALITY = 95
 MODES = ("444", "420y", "420c")
+# The suffix of an EXACT_LUT variant's name in the kernels' JSON record.
+EXACT = "+exact_lut"
 
 # The corpus phase's inputs and their golden sizes at q95
 # (tests/golden_corpus.txt), and its threads.
@@ -194,6 +212,29 @@ STEP_RTOL = 1e-3
 MESH_PLANE = (908, 1444)
 MESH_SEED = 11
 MESH_TIMEOUT = 600.0
+
+# The knobs phase: the JAX package's remaining variables, each forced on
+# bees96x64 and bees_d-420 at q95. The numeric ones (EXACT_LUT,
+# LANE_SAFE, SEL_MATMUL) may move bits; the route and opt-out ones must
+# give the default bytes, but for LANES=0, whose blocks-leading compare
+# (ops/tiles.py) is another rounding of the block error than the
+# lane-major one, as in the JAX package (held to the golden band).
+KNOB_ENCODES = (E2E[0], E2E[2])
+KNOB_SETTINGS = [
+    ("EXACT_LUT=1", {"EXACT_LUT": "1"}, False),
+    ("LANE_SAFE=1", {"LANE_SAFE": "1"}, False),
+    ("SEL_MATMUL=1", {"SEL_MATMUL": "1"}, False),
+    ("ZEROING_FUSED=0", {"ZEROING_FUSED": "0"}, True),
+    ("LANES=0 ZEROING_FUSED=0", {"LANES": "0", "ZEROING_FUSED": "0"}, False),
+    ("STAGED_ZEROING=0", {"STAGED_ZEROING": "0"}, True),
+    ("NO_NATIVE=1", {"NO_NATIVE": "1"}, True),
+    ("NO_INCR_SAVE=1 NO_HISTO_REUSE=1",
+     {"NO_INCR_SAVE": "1", "NO_HISTO_REUSE": "1"}, True),
+    ("PALLAS=1 EXACT_LUT=1", {"PALLAS": "1", "EXACT_LUT": "1"}, False),
+]
+KNOB_VARS = ("EXACT_LUT", "LANE_SAFE", "SEL_MATMUL", "ZEROING_FUSED",
+             "LANES", "STAGED_ZEROING", "NO_NATIVE", "NO_INCR_SAVE",
+             "NO_HISTO_REUSE", "PALLAS", "ZEROING_DEBUG")
 
 # --checkcuda's per-stage mismatch counts on bees_d-420.jpg, as
 # tests/test_torch_tooling.py pins them for the port on the CPU (JAX's
@@ -691,10 +732,17 @@ def phase_greedy_444p(state, dev):
     return n
 
 
-def _launch_counts():
+def _launch_counts(exact=False):
+    """Kernel name -> launches since the last reset (exact: those of the
+    EXACT_LUT variants of A, A', A'', B, B', B'')."""
     from guetzli_tpu_torch.kernels import tile_compare as kc
     from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
     from guetzli_tpu_torch.kernels import zeroing_loop as zl
+    if exact:
+        out = {ka.ENTRY[m] + EXACT: ka.exact_launches[m] for m in MODES}
+        out.update({zl.ENTRY[m] + EXACT: zl.exact_launches[m]
+                    for m in MODES})
+        return out
     out = {ka.ENTRY[m]: ka.launches[m] for m in MODES}
     out.update({zl.ENTRY[m]: zl.launches[m] for m in MODES})
     out[kc.ENTRY] = kc.launches
@@ -708,6 +756,8 @@ def _reset_launches():
     for m in MODES:
         ka.launches[m] = 0
         zl.launches[m] = 0
+        ka.exact_launches[m] = 0
+        zl.exact_launches[m] = 0
     kc.launches = 0
 
 
@@ -2051,6 +2101,260 @@ def phase_memory():
                            "peak RSS of %s" % E2E[0][0])
 
 
+def knob_compare(mode, state, dev):
+    """The EXACT_LUT variant of the mode's compare (A, A', A'') on the
+    first greedy step's lanes against its plain version under the knob,
+    bit for bit; its time beside the closed form's. Returns its record."""
+    from guetzli_tpu_torch.kernels import tile_compare_lanes as ka
+    from guetzli_tpu_torch.ops import tiles_lanes as tl
+    ct, lanes, _r = first_step(mode, state, dev)
+    n = ct.shape[-1]
+    got = ka.tile_compare_lanes(ct, *lanes, mode=mode, exact_lut=True)
+    want = tl.COMPARE[mode](ct, *lanes, exact_lut=True)
+    closed = ka.tile_compare_lanes(ct, *lanes, mode=mode, exact_lut=False)
+    torch.cuda.synchronize()
+    name = ka.ENTRY[mode] + EXACT
+    max_abs = float((got - want).abs().max())
+    moved = int((got != closed).sum())
+    log("%s vs plain (EXACT_LUT) on %d lanes: bit-equal %s, max abs %.3g; "
+        "differs from the closed form on %d lanes"
+        % (name, n, bool(torch.equal(got, want)), max_abs, moved))
+    if not torch.equal(got, want):
+        raise RuntimeError("%s is not bit-equal to its plain version" % name)
+    ms = time_cuda(lambda: ka.tile_compare_lanes(ct, *lanes, mode=mode,
+                                                 exact_lut=True), 10)
+    closed_ms = time_cuda(lambda: ka.tile_compare_lanes(
+        ct, *lanes, mode=mode, exact_lut=False), 10)
+    plain_ms = time_cuda(lambda: tl.COMPARE[mode](ct, *lanes,
+                                                  exact_lut=True), 3)
+    b_ms, by = bound_ms(mode, n, n * compare_bytes(mode))
+    log("%s: %.4f ms (median of 10) against the closed form's %.4f ms; "
+        "plain %.3f ms; bound %.4f ms (%s)"
+        % (name, ms, closed_ms, plain_ms, b_ms, by))
+    replaces = ("guetzli_tpu/kernels/tile_compare_lanes.py:119"
+                if mode == "444" else
+                "guetzli_tpu/ops/tiles_lanes.py:%d (XLA, no pallas_call)"
+                % (331 if mode == "420y" else 380))
+    return {"name": name, "route": "cuda",
+            "source": "guetzli_tpu_torch/csrc/tile_compare_lanes.cu",
+            "replaces": replaces + ", GUETZLI_TPU_EXACT_LUT=1",
+            "max_abs_err": max_abs, "ms": ms, "closed_form_ms": closed_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None}
+
+
+def knob_greedy(mode, state, dev):
+    """The EXACT_LUT variant of the mode's greedy kernel (B, B', B'') on
+    the whole pass against the plain loop under the knob, both rails bit
+    for bit; its time beside the closed form's. Returns its record."""
+    from functools import partial
+
+    from guetzli_tpu_torch.kernels import zeroing_loop as zl
+    from guetzli_tpu_torch.ops import tiles_lanes as tl
+    from guetzli_tpu_torch.search import zeroing
+    blocks, orig, aux, mask = state
+    args, _perm, _inv, _lim = zeroing.loop_inputs(
+        blocks, orig, np.float32(target()), aux, mask, dev, mode)
+    k_idx, k_err = zl.zeroing_loop(*args, mode=mode, exact_lut=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    p_idx, p_err = zl.zeroing_loop_plain(
+        *args, mode=mode, evaluate=partial(tl.COMPARE[mode], exact_lut=True))
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.time() - t0)
+    name = zl.ENTRY[mode] + EXACT
+    same = torch.equal(k_idx, p_idx) and torch.equal(k_err, p_err)
+    fin = torch.isfinite(k_err) & (k_idx == p_idx)
+    max_abs = float((k_err[fin] - p_err[fin]).abs().max()) if bool(
+        fin.any()) else 0.0
+    c_idx, c_err = zl.zeroing_loop(*args, mode=mode, exact_lut=False)
+    moved = int(((c_idx != k_idx) | (c_err != k_err)).any(0).sum())
+    log("%s vs plain loop (EXACT_LUT): both rails bit-equal %s on %d "
+        "blocks; %d blocks' rails differ from the closed form's"
+        % (name, same, k_idx.shape[1], moved))
+    if not same:
+        raise RuntimeError("%s differs from its plain version" % name)
+    ms = time_cuda(lambda: zl.zeroing_loop(*args, mode=mode,
+                                           exact_lut=True), 3)
+    closed_ms = time_cuda(lambda: zl.zeroing_loop(*args, mode=mode,
+                                                  exact_lut=False), 3)
+    nrem = args[2].long()
+    evals = int(torch.where(nrem >= 2, 3 * nrem - 3, nrem).sum())
+    n = nrem.numel()
+    b_ms, by = bound_ms(mode, evals, n * greedy_bytes(mode))
+    log("%s: %.3f ms (median of 3) against the closed form's %.3f ms; "
+        "plain %.1f ms (one run); bound %.4f ms (%s)"
+        % (name, ms, closed_ms, plain_ms, b_ms, by))
+    return {"name": name, "route": "cuda",
+            "source": "guetzli_tpu_torch/csrc/zeroing_loop.cu",
+            "replaces": "guetzli_tpu/kernels/zeroing_loop.py:301 (mode %s), "
+            "GUETZLI_TPU_EXACT_LUT=1" % mode, "max_abs_err": max_abs,
+            "ms": ms, "closed_form_ms": closed_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+def knob_tile_compare(state, dev):
+    """Kernel C on A's lanes with GUETZLI_TPU_EXACT_LUT=1 and unset: the
+    same errors (C keeps its closed forms, as the JAX kernel)."""
+    from guetzli_tpu_torch.kernels import tile_compare as kc
+    blocks, _orig, aux, _mask = state
+    x0, sc, ysel, xsel = aux
+    sy, sx = kc.selection_matrices(ysel, xsel)
+    cand = torch.as_tensor(blocks, device=dev)
+    x0, sc = x0.contiguous(), sc.contiguous()
+    outs = []
+    for value in (None, "1"):
+        with _env({"GUETZLI_TPU_EXACT_LUT": value}):
+            outs.append(kc.tile_compare(cand, x0, sc, sy, sx))
+    same = torch.equal(outs[0], outs[1])
+    log("tile_compare with GUETZLI_TPU_EXACT_LUT=1 and unset on %d blocks: "
+        "equal %s" % (len(blocks), same))
+    if not same:
+        raise RuntimeError("kernel C depends on GUETZLI_TPU_EXACT_LUT")
+
+
+def knob_encodes(dev, outputs):
+    """KNOB_ENCODES under each KNOB_SETTINGS entry (the other knob
+    variables unset), the launch counts set to 0 before and read after
+    each: golden band and distance at or below target for all; the
+    default bytes for the route and opt-out settings. The PNG is decoded
+    before the variables are set (under NO_NATIVE the PNG reader
+    raises). Returns the EXACT_LUT variants' launches in the EXACT_LUT=1
+    encodes."""
+    from guetzli_tpu_torch import api
+    from guetzli_tpu_torch.io.png import read_png
+    from guetzli_tpu_torch.search.processor import ProcessStats
+    clear = dict.fromkeys(("GUETZLI_TPU_" + k for k in KNOB_VARS))
+    inputs = {}
+    for path, _g in KNOB_ENCODES:
+        data = (REPO / path).read_bytes()
+        inputs[path] = (data, None if api.is_jpeg(data) else read_png(data))
+    exact = {}
+    for label, env, same_bytes in KNOB_SETTINGS:
+        _reset_launches()
+        for path, golden in KNOB_ENCODES:
+            stats = ProcessStats()
+            with _env(dict(clear, **{"GUETZLI_TPU_" + k: v
+                                     for k, v in env.items()})):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                out = api._encode(*inputs[path], QUALITY, None, stats, dev)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            equal = out == outputs[path]
+            log("knob %s, %s: %.2f s, %d bytes, default bytes %s, distance "
+                "%.4f, backend_serialize %.3f s, zeroing_loop %.3f s"
+                % (label, path, wall, len(out), equal,
+                   stats.final_distance or -1,
+                   stats.timings.get("backend_serialize", 0.0),
+                   stats.timings.get("zeroing_loop", 0.0)))
+            if stats.search_error is not None:
+                raise RuntimeError("search failed: %s" % stats.search_error)
+            _check_golden(path, out, golden)
+            if not stats.final_distance <= target():
+                raise RuntimeError("%s under %s: distance %.4f above target"
+                                   % (path, label, stats.final_distance))
+            if same_bytes and not equal:
+                raise RuntimeError("%s under %s: %d bytes, not the default "
+                                   "%d" % (path, label, len(out),
+                                           len(outputs[path])))
+        counts = dict(_launch_counts(), **_launch_counts(exact=True))
+        log("knob %s launches: %s" % (label, ", ".join(
+            "%s %d" % kv for kv in counts.items() if kv[1])))
+        if label == "EXACT_LUT=1":
+            exact = _launch_counts(exact=True)
+            if min(exact.values()) == 0 or max(_launch_counts().values()):
+                raise RuntimeError("EXACT_LUT=1 encodes launched %s" % counts)
+    return exact
+
+
+def knob_routes(state, dev):
+    """photo_mosaic1's 4:4:4 pass through the staged route
+    (ZEROING_FUSED=0: A per step) and the full-batch route
+    (STAGED_ZEROING=0: the host CSR) against the fused kernel B: the CSR
+    arrays equal, the zeroing walls side by side."""
+    from guetzli_tpu_torch.search import zeroing
+    blocks, orig, aux, mask = state
+    limit = np.float32(target())
+    csrs, walls = {}, {}
+    for label, env in (("fused", {}), ("staged", {"ZEROING_FUSED": "0"}),
+                       ("full-batch", {"STAGED_ZEROING": "0"})):
+        with _env({"GUETZLI_TPU_" + k: env.get(k)
+                   for k in ("ZEROING_FUSED", "STAGED_ZEROING")}):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            if label == "full-batch":
+                csr = zeroing.csr_from_zeroing(*zeroing.compute_zeroing_order(
+                    blocks, orig, limit, aux, mask, dev), limit)
+            else:
+                csr = zeroing.compute_zeroing_csr(blocks, orig, limit, aux,
+                                                  mask, dev)
+            torch.cuda.synchronize()
+            walls[label] = time.time() - t0
+        csrs[label] = csr
+    for label in ("staged", "full-batch"):
+        same = all(np.array_equal(a, b)
+                   for a, b in zip(csrs["fused"], csrs[label]))
+        log("knob routes photo_mosaic1 %s: zeroing %.3f s against the "
+            "fused kernel's %.3f s; CSR (%d candidates) equal %s"
+            % (label, walls[label], walls["fused"], len(csrs[label][1]),
+               same))
+        if not same:
+            raise RuntimeError("the %s zeroing route's CSR differs" % label)
+
+
+def knob_compares(dev):
+    """One padded compare of photo_mosaic1 (the _dyn chain, where
+    SEL_MATMUL and LANE_SAFE's block diff act) by default, with the
+    one-hot selections and with the lane-safe forms: ms each; SEL_MATMUL
+    bit for bit the default, LANE_SAFE within 1e-4 relative on the
+    diffmap (another rounding of the block diff)."""
+    comp, img, _ds, _q = _quant_start(ROUTE[0][0], dev, padded=True)
+    maps, mss = {}, {}
+    for label, env in (("default", {}), ("SEL_MATMUL=1",
+                                          {"SEL_MATMUL": "1"}),
+                       ("LANE_SAFE=1", {"LANE_SAFE": "1"})):
+        with _env({"GUETZLI_TPU_" + k: env.get(k)
+                   for k in ("SEL_MATMUL", "LANE_SAFE")}):
+            mss[label] = time_cuda(lambda: comp.compare_img(img), 3)
+            maps[label] = comp.distmap.clone()
+    ref = maps["default"]
+    for label in ("SEL_MATMUL=1", "LANE_SAFE=1"):
+        diff = (maps[label] - ref).abs()
+        rel = float((diff / ref.abs().clamp_min(1e-3)).max())
+        log("knob compare %s (padded photo_mosaic1): %.3f ms against the "
+            "default's %.3f ms (median of 3); diffmap max relative "
+            "difference %.3g, equal %s" % (label, mss[label],
+                                           mss["default"], rel,
+                                           bool(torch.equal(maps[label],
+                                                            ref))))
+        if label == "SEL_MATMUL=1" and not torch.equal(maps[label], ref):
+            raise RuntimeError("SEL_MATMUL=1 moved the padded diffmap")
+        if label == "LANE_SAFE=1" and not rel <= 1e-4:
+            raise RuntimeError("LANE_SAFE=1 diffmap off by %.3g" % rel)
+
+
+def phase_knobs(dev, states, outputs):
+    """The JAX package's remaining knobs on the card: the EXACT_LUT
+    variants of A, A', A'', B, B', B'' against their plain versions (C
+    unmoved), the encodes under each knob, the staged and full-batch
+    zeroing routes on photo_mosaic1, the one-hot and lane-safe compares.
+    Returns the variants' records."""
+    t0 = time.time()
+    records = []
+    for mode in MODES:
+        records.append(knob_compare(mode, states[mode], dev))
+        records.append(knob_greedy(mode, states[mode], dev))
+    knob_tile_compare(states["444"], dev)
+    exact = knob_encodes(dev, outputs)
+    for rec in records:
+        rec["launches"] = exact[rec["name"]]
+    knob_routes(states["444"], dev)
+    knob_compares(dev)
+    log("knobs phase: %.1f s" % (time.time() - t0))
+    return records
+
+
 def main(argv=()):
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
@@ -2064,6 +2368,22 @@ def main(argv=()):
         phase_padded(dev, {p: _serial_encode(p, dev)[0] for p, _g in E2E},
                      [])
         return 0
+    if list(argv) == ["kernels"]:
+        # The kernel phases alone (no 444p pass, one run of each plain
+        # loop): the seven kernels against their plain versions, timed.
+        for mode, state in dict(mosaic444(dev), **mosaic420(dev)).items():
+            phase_compare(mode, state, dev)
+            phase_greedy(mode, state, dev, 1)
+            if mode == "444":
+                phase_tile_compare(state, dev)
+        return 0
+    if list(argv) == ["knobs"]:
+        # The knobs phase alone, against default-path encodes of its
+        # images; exits nonzero if it fails.
+        states = dict(mosaic444(dev), **mosaic420(dev))
+        phase_knobs(dev, states, {p: _serial_encode(p, dev)[0]
+                                  for p, _g in KNOB_ENCODES})
+        return 0
     if list(argv) == ["mesh"]:
         # The mesh phase alone, against serial encodes of its images.
         serial = {p: _serial_encode(p, dev)
@@ -2074,14 +2394,14 @@ def main(argv=()):
         phase_memory()
         return 0
     records = []
-    for states in (mosaic444(dev), mosaic420(dev)):
-        for mode, state in states.items():
-            records.append(phase_compare(mode, state, dev))
-            records.append(phase_greedy(mode, state, dev,
-                                        1 if mode == "420c" else 3))
-            if mode == "444":
-                records.append(phase_tile_compare(state, dev))
-                phase_greedy_444p(state, dev)
+    states = dict(mosaic444(dev), **mosaic420(dev))
+    for mode, state in states.items():
+        records.append(phase_compare(mode, state, dev))
+        records.append(phase_greedy(mode, state, dev,
+                                    1 if mode == "420c" else 3))
+        if mode == "444":
+            records.append(phase_tile_compare(state, dev))
+            phase_greedy_444p(state, dev)
     launches, outputs, walls = phase_e2e(dev)
     # Kernel C's paths: --checkcuda and the opt-in 444p search.
     launches["tile_compare"] = (phase_checkcuda(dev)
@@ -2098,6 +2418,7 @@ def main(argv=()):
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         rec["corpus_launches"] = corpus_launches.get(rec["name"], 0)
+    records += phase_knobs(dev, states, outputs)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The knobs of guetzli_tpu/config.py that the port reads.
+"""The knobs of guetzli_tpu/config.py, all of which the port reads but
+the four Pallas sizes (below).
 
 Each reads its GUETZLI_TPU_* variable at call time, as the JAX package's
 ``config.current()`` does, so a change of the environment (or a
@@ -19,8 +20,60 @@ pad (PAD)                | see auto() below       | padded bucket
                          |                        | stacks compares
 mesh (MESH)              | 0: one device          | N: one image over
                          |                        | N ranks (--mesh N)
+exact_lut (EXACT_LUT)    | closed forms           | =1: the reference's
+                         |                        | tables (sRGB, colour
+                         |                        | diff, masking) in the
+                         |                        | torch chain and in
+                         |                        | A, A', A'', B, B', B''
+                         |                        | (never in C)
+lane_safe (LANE_SAFE)    | off on CPU and card    | 1: one-hot upsample
+                         |                        | columns; the padded
+                         |                        | block diff lane-major
+sel_matmul (SEL_MATMUL)  | gather                 | =1: the padded chain's
+                         |                        | selections as one-hot
+                         |                        | matmuls (exact)
+zeroing_fused            | fused B, B', B''       | 0: the staged loop,
+  (ZEROING_FUSED)        | (PALLAS=0: 4:4:4       | A, A', A'' per step
+                         | staged)                |
+staged_zeroing           | sorted, device CSR     | 0: full-batch loop,
+  (STAGED_ZEROING)       |                        | no count sort, host
+                         |                        | CSR
+lanes (LANES)            | lane-major evaluation  | 0: the staged and
+                         |                        | full-batch loops
+                         |                        | evaluate blocks-leading
+                         |                        | (ops/tiles.py); fused:
+                         |                        | no change
+native (NO_NATIVE)       | C++ host library       | any value: the Python
+                         |                        | codec, histograms and
+                         |                        | flip loop (the PNG
+                         |                        | reader raises)
+incr_save (NO_INCR_SAVE) | incremental jpeg_data  | =1: whole save per
+                         |                        | flip iteration
+histo_reuse              | DC histograms reused   | =1: rebuilt per flip
+  (NO_HISTO_REUSE)       |                        | iteration
+zeroing_debug            | silent                 | =1: stage walls on
+  (ZEROING_DEBUG)        |                        | stderr
 
-The route knobs are tri-state: None (unset) is "auto", which the
+The ten knobs from exact_lut down act alike on the CPU and on the card
+(where a CUDA kernel runs on the card, its plain version runs on the
+CPU). LANE_SAFE's auto is on for a TPU in the JAX package: its T(8,128)
+tiled layout pads a narrow minor dimension up to 128 lanes, and the
+lane-safe forms keep every plane-scale tensor wide. A GPU has no such
+layout, so auto is off on the card as on the CPU, and =1 forces the
+JAX package's accelerator formulation. The zeroing routes and the
+opt-outs give the default's CSR arrays and bytes, but LANES=0: its
+blocks-leading compare is another rounding of the block error, as in
+JAX; EXACT_LUT and (on the padded geometry) LANE_SAFE change the
+rounding too, as they do in JAX.
+
+Four fields of the JAX package's config size a TPU grid step:
+PALLAS_TILE, PALLAS_TILE_N, PALLAS_VMEM_MB and ZEROING_TILE_N (a Pallas
+tile of blocks and its VMEM budget). The team kernels run one CTA per
+block or macroblock and have no such tile, so the port reads none of
+them.
+
+The search route knobs (PIPELINE, SPECULATE, TREE_QUANT, SPARSE, PAD)
+are tri-state: None (unset) is "auto", which the
 call site decides per device through ``auto``, as the JAX package decides
 per backend (search/processor.py). On the CPU auto is off for all of them,
 as in JAX for the first three (JAX keeps sparse and the padded geometry
@@ -63,6 +116,11 @@ def _opt_int(name):
     return None if v in (None, "") else int(v)
 
 
+def _flag(name, default):
+    v = os.environ.get(_PREFIX + name)
+    return default if v is None else v != "0"
+
+
 def _opt_flag(name):
     v = os.environ.get(_PREFIX + name)
     return None if v is None else v != "0"
@@ -101,6 +159,63 @@ def sparse():
 def pad():
     """GUETZLI_TPU_PAD: padded bucket geometry (ops/padgeom.py)."""
     return _opt_flag("PAD")
+
+
+def exact_lut():
+    """GUETZLI_TPU_EXACT_LUT=1: the reference's tables in place of the
+    closed forms (ops/blockdiff.py, ops/image.py, the kernels' table
+    buffer)."""
+    return os.environ.get(_PREFIX + "EXACT_LUT") == "1"
+
+
+def lane_safe():
+    """GUETZLI_TPU_LANE_SAFE as a flag, None when unset (ops/layout.py
+    decides)."""
+    return _opt_flag("LANE_SAFE")
+
+
+def sel_matmul():
+    """GUETZLI_TPU_SEL_MATMUL=1: one-hot matmul selections
+    (ops/diffmap._select_yx)."""
+    return os.environ.get(_PREFIX + "SEL_MATMUL") == "1"
+
+
+def zeroing_fused():
+    """GUETZLI_TPU_ZEROING_FUSED as a flag, None when unset
+    (search/zeroing.route decides)."""
+    return _opt_flag("ZEROING_FUSED")
+
+
+def staged_zeroing():
+    """GUETZLI_TPU_STAGED_ZEROING: False only for "0" (the full-batch loop
+    and the host CSR)."""
+    return _flag("STAGED_ZEROING", True)
+
+
+def lanes():
+    """GUETZLI_TPU_LANES: False only for "0" (blocks-leading evaluation in
+    the staged and full-batch loops)."""
+    return _flag("LANES", True)
+
+
+def native():
+    """False when GUETZLI_TPU_NO_NATIVE holds any non-empty value."""
+    return not os.environ.get(_PREFIX + "NO_NATIVE")
+
+
+def incr_save():
+    """False under GUETZLI_TPU_NO_INCR_SAVE=1."""
+    return os.environ.get(_PREFIX + "NO_INCR_SAVE") != "1"
+
+
+def histo_reuse():
+    """False under GUETZLI_TPU_NO_HISTO_REUSE=1."""
+    return os.environ.get(_PREFIX + "NO_HISTO_REUSE") != "1"
+
+
+def zeroing_debug():
+    """GUETZLI_TPU_ZEROING_DEBUG=1: stage walls on stderr."""
+    return os.environ.get(_PREFIX + "ZEROING_DEBUG") == "1"
 
 
 def mesh():

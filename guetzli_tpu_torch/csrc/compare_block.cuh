@@ -27,7 +27,11 @@
 // with --fmad=false, so each multiply and each add rounds on its own, as the
 // plain version's separate tensor ops do, and the kernels can equal it bit
 // for bit. The integer IDCT stays in int32 (products reach 2^27, past the
-// float32 mantissa). The sRGB->linear step reads a 256-entry table that
+// float32 mantissa). The two colour-difference DY reads take the closed
+// form or, under GUETZLI_TPU_EXACT_LUT=1, the reference's 21-entry
+// tables: a template parameter (EXACT) chooses, so the closed form's code
+// and shared memory are those of a build without the tables; A, A', A'',
+// B, B', B'' have a kernel of each form, C only the closed one. The sRGB->linear step reads a 256-entry table that
 // the wrapper evaluates with the plain version's closed form on the same
 // device, so it is that function exactly.
 //
@@ -71,7 +75,10 @@
 #define S_YLIM 55
 #define S_EW 56
 #define S_1MEW 57
-#define N_TABLES 640
+#define N_CLOSED 640    // the closed forms' tables: everything above
+#define T_LFDY_LUT 640  // [21] LF_COLOR_DIFF_DY (the table form only)
+#define T_HFDY_LUT 661  // [21] HF_COLOR_DIFF_DY (the table form only)
+#define N_TABLES 682
 
 namespace gtk {
 
@@ -102,14 +109,39 @@ __device__ __forceinline__ float pw_progression(const float* p, float s) {
   return (s < 0.0f) ? -res : res;
 }
 
+// Odd piecewise-linear read of an n-entry table (blockdiff.interpolate,
+// in its order): the entries around |s|, then l0 + frac * (l1 - l0); the
+// last entry from n - 1 on. A NaN reads from entry 0 and stays NaN.
+__device__ __forceinline__ float interpolate(const float* lut, int n,
+                                             float s) {
+  float ix = fabsf(s);
+  int base = (ix >= (float)(n - 1)) ? n - 1 : (ix >= 0.0f ? (int)ix : 0);
+  int safe = base < n - 2 ? base : n - 2;
+  float frac = ix - (float)base;
+  float l0 = lut[safe], l1 = lut[safe + 1];
+  float res = (base >= n - 1) ? lut[n - 1] : l0 + frac * (l1 - l0);
+  return (s < 0.0f) ? -res : res;
+}
+
+// A colour-difference DY read: the closed form from the progression's
+// scalars at S + prog, or in the table form (EXACT) the 21-entry table at
+// T + lut (S = T + T_SCAL).
+template <bool EXACT>
+__device__ __forceinline__ float dy_read(const float* S, int prog, int lut,
+                                         float s) {
+  if constexpr (EXACT) return interpolate(S - T_SCAL + lut, 21, s);
+  return pw_progression(S + prog, s);
+}
+
 // blockdiff.xyb_diff_low_freq_squared.
+template <bool EXACT>
 __device__ __forceinline__ void low_freq_sq(const float* S, float x, float y,
                                             float z, float* ox, float* oy,
                                             float* oz) {
   z = z + S[S_LF_Y2Z] * y;
   float valz = z * S[S_LF_ZMUL];
   float valx = x * S[S_LF_XMUL];
-  float valy = pw_progression(S + S_LFDY, y * S[S_LF_YMUL]);
+  float valy = dy_read<EXACT>(S, S_LFDY, T_LFDY_LUT, y * S[S_LF_YMUL]);
   *ox = valx * valx;
   *oy = valy * valy;
   *oz = valz * valz;

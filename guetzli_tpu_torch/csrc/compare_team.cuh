@@ -230,7 +230,8 @@ __device__ __forceinline__ void pixel_420c_team(
 // unit's scratch, U[F_LIN..] holding the candidate's linear RGB; x0: the
 // original opsin tile [3][64] in shared memory; sc: its three scales; p:
 // the thread's index in the unit. Thread 0 of an active unit writes the
-// block error to *err. Seven barriers.
+// block error to *err. Seven barriers. EXACT: the DY reads by table.
+template <bool EXACT>
 __device__ __forceinline__ void finish_team(float* U,
                                             const float* x0,
                                             const float* sc,
@@ -383,9 +384,10 @@ __device__ __forceinline__ void finish_team(float* U,
           float h = sqrtf(F[192 + q]);
           float y0 = gtk::remove_range(a - h, rng);
           float y1 = gtk::remove_range(a + h, rng);
-          const float* hf = S + S_HFDY;
-          float valy = S[S_ACY] * (gtk::pw_progression(hf, y0 * ymul2) -
-                                   gtk::pw_progression(hf, y1 * ymul2));
+          float valy =
+              S[S_ACY] *
+              (gtk::dy_read<EXACT>(S, S_HFDY, T_HFDY_LUT, y0 * ymul2) -
+               gtk::dy_read<EXACT>(S, S_HFDY, T_HFDY_LUT, y1 * ymul2));
           val = valy * valy;
         }
         float term = D[q] * val;
@@ -420,14 +422,14 @@ __device__ __forceinline__ void finish_team(float* U,
       avg[ch] = s * 0.125f;
     }
     float dc[3], edge[3], qx, qy, qz;
-    gtk::low_freq_sq(S, avg[0], avg[1], avg[2], &qx, &qy, &qz);
+    gtk::low_freq_sq<EXACT>(S, avg[0], avg[1], avg[2], &qx, &qy, &qz);
     dc[0] = qx * csf0;
     dc[1] = qy * csf0;
     dc[2] = qz * csf0;
     float sx = 0.0f, sy = 0.0f, sz = 0.0f;
     for (int k = 0; k < 4; ++k) {
       const float* e = PART + 48 + k * 3;
-      gtk::low_freq_sq(S, e[0], e[1], e[2], &qx, &qy, &qz);
+      gtk::low_freq_sq<EXACT>(S, e[0], e[1], e[2], &qx, &qy, &qz);
       sx = (k == 0) ? qx : sx + qx;
       sy = (k == 0) ? qy : sy + qy;
       sz = (k == 0) ? qz : sz + qz;
@@ -532,11 +534,14 @@ struct Team420c {
 };
 
 // The CTA's dynamic shared memory: floats, then ints (offsets in words).
-template <class M>
+// The closed form loads the tables below N_CLOSED, the table form (EXACT)
+// all N_TABLES.
+template <class M, bool EXACT = false>
 struct Layout {
   static constexpr int THREADS = M::SUBS * UNIT;
-  static constexpr int TAB = 0;                        // N_TABLES
-  static constexpr int UNITF = N_TABLES;               // units' scratch
+  static constexpr int NT = EXACT ? N_TABLES : N_CLOSED;
+  static constexpr int TAB = 0;                        // [NT]
+  static constexpr int UNITF = NT;                     // units' scratch
   static constexpr int X0 = UNITF + M::SUBS * F_UNIT;  // [SUBS][192]
   static constexpr int SC = X0 + M::SUBS * 192;        // [SUBS][4]
   static constexpr int ERR = SC + M::SUBS * 4;         // [SUBS]
@@ -556,13 +561,13 @@ struct Layout {
 // Loads the table buffer and lane b's state into the CTA's shared memory
 // (sf: its floats, si: its ints). The caller loads the coefficients and
 // then synchronises.
-template <class M>
+template <class M, bool EXACT>
 __device__ __forceinline__ void load_state(const State& s,
                                            const float* __restrict__ tables,
                                            float* sf, int* si, int b, int n,
                                            int tid) {
-  using L = Layout<M>;
-  for (int i = tid; i < N_TABLES; i += L::THREADS) sf[L::TAB + i] = tables[i];
+  using L = Layout<M, EXACT>;
+  for (int i = tid; i < L::NT; i += L::THREADS) sf[L::TAB + i] = tables[i];
   for (int i = tid; i < M::SUBS * 192; i += L::THREADS)
     sf[L::X0 + i] = s.x0[(long)i * n + b];
   for (int i = tid; i < M::SUBS * 3; i += L::THREADS)
@@ -584,18 +589,18 @@ __device__ __forceinline__ void load_state(const State& s,
 // stage -> one float stage per unit. B, B', A, A': the block's error; B''
 // and A'': the max over the valid sub-blocks, starting from 0, in sub-block
 // order. Every thread returns the same value. Eleven barriers (C:
-// thirteen).
-template <class M>
+// thirteen). EXACT: the DY reads by table, in the Layout of that form.
+template <class M, bool EXACT = false>
 __device__ __forceinline__ float eval_team(const int* c, int zero, float* sf,
                                            int* si, const Rows& R, int tid) {
-  using L = Layout<M>;
+  using L = Layout<M, EXACT>;
   const int sub = tid / UNIT;
   const float* T = sf + L::TAB;
   float* U = sf + L::UNITF + sub * F_UNIT;
   const bool active = si[L::CL + 2 * M::SUBS + sub] > 0;
   M::pixel(c, zero, si + L::IB, U + F_LIN, si + L::NBI, si[L::CL + sub],
            si[L::CL + M::SUBS + sub], T, R, tid, active);
-  finish_team(U, sf + L::X0 + sub * 192, sf + L::SC + sub * 4, T, R,
+  finish_team<EXACT>(U, sf + L::X0 + sub * 192, sf + L::SC + sub * 4, T, R,
               tid % UNIT, active, sf + L::ERR + sub);
   __syncthreads();
   float e = M::SUBS == 1 ? sf[L::ERR] : 0.0f;

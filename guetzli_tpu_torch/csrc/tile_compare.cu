@@ -54,7 +54,8 @@ tile_compare_kernel(const int* __restrict__ cand,
   int* si = (int*)(sf + LSel::NF);
   const int tid = threadIdx.x;
   const long b = blockIdx.x;
-  for (int i = tid; i < N_TABLES; i += LSel::THREADS)
+  // The closed forms only, as the JAX kernel (LSel::NT = N_CLOSED).
+  for (int i = tid; i < LSel::NT; i += LSel::THREADS)
     sf[LSel::TAB + i] = tables[i];
   for (int i = tid; i < 192; i += LSel::THREADS) {
     si[LSel::C + i] = cand[b * 192 + i];

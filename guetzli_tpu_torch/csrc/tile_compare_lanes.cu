@@ -42,23 +42,23 @@
 extern __shared__ float4 team_smem[];
 
 // The error of lane blockIdx.x by the whole CTA of a team compare of mode
-// M that reads the NC candidate rows from row C0. Every thread reaches
-// every barrier.
-template <class M, int C0, int NC>
+// M that reads the NC candidate rows from row C0, its DY reads in the
+// closed form or by table (EXACT). Every thread reaches every barrier.
+template <class M, int C0, int NC, bool EXACT>
 __device__ __forceinline__ void compare_team(
     const int* __restrict__ cand, const gtt::State& s,
     const float* __restrict__ tables, float* __restrict__ out, int n) {
-  using L = gtt::Layout<M>;
+  using L = gtt::Layout<M, EXACT>;
   float* sf = (float*)team_smem;
   int* si = (int*)(sf + L::NF);
   const int tid = threadIdx.x, b = blockIdx.x;
   for (int i = C0 + tid; i < C0 + NC; i += L::THREADS)
     si[L::C + i] = cand[(long)i * n + b];
-  gtt::load_state<M>(s, tables, sf, si, b, n, tid);
+  gtt::load_state<M, EXACT>(s, tables, sf, si, b, n, tid);
   __syncthreads();
   gtt::Rows R;
   gtt::load_rows(sf + L::TAB, tid & 7, R);
-  const float e = gtt::eval_team<M>(si + L::C, -1, sf, si, R, tid);
+  const float e = gtt::eval_team<M, EXACT>(si + L::C, -1, sf, si, R, tid);
   if (tid == 0) out[b] = e;
 }
 
@@ -66,60 +66,75 @@ using L444 = gtt::Layout<gtt::Team444>;
 using L420y = gtt::Layout<gtt::Team420y>;
 using L420c = gtt::Layout<gtt::Team420c>;
 
-extern "C" __global__ void __launch_bounds__(L444::THREADS,
-                                             gtt::Team444::MINB)
-tile_compare_lanes_kernel(const int* __restrict__ cand,
-                          const float* __restrict__ x0,
-                          const float* __restrict__ sc,
-                          const int* __restrict__ ymax,
-                          const int* __restrict__ xmax,
-                          const float* __restrict__ tables,
-                          float* __restrict__ out, int n) {
-  const gtt::State s{x0, sc, ymax, xmax, nullptr,
-                     {nullptr, nullptr, nullptr}};
-  compare_team<gtt::Team444, 0, 192>(cand, s, tables, out, n);
-}
+// Each compare's kernel in the closed form and its table form (_exact,
+// GUETZLI_TPU_EXACT_LUT=1); a macro writes the pair.
+#define GT_COMPARE_444(NAME, EXACT)                                         \
+  extern "C" __global__ void __launch_bounds__(L444::THREADS,              \
+                                               gtt::Team444::MINB)         \
+  NAME(const int* __restrict__ cand, const float* __restrict__ x0,          \
+       const float* __restrict__ sc, const int* __restrict__ ymax,          \
+       const int* __restrict__ xmax, const float* __restrict__ tables,      \
+       float* __restrict__ out, int n) {                                    \
+    const gtt::State s{x0, sc, ymax, xmax, nullptr,                         \
+                       {nullptr, nullptr, nullptr}};                        \
+    compare_team<gtt::Team444, 0, 192, EXACT>(cand, s, tables, out, n);     \
+  }
+GT_COMPARE_444(tile_compare_lanes_kernel, false)
+GT_COMPARE_444(tile_compare_lanes_exact_kernel, true)
 
-extern "C" __global__ void __launch_bounds__(L420y::THREADS,
-                                             gtt::Team420y::MINB)
-tile_compare_lanes_420y_kernel(const int* __restrict__ cand,
-                               const int* __restrict__ chroma,
-                               const float* __restrict__ x0,
-                               const float* __restrict__ sc,
-                               const int* __restrict__ ymax,
-                               const int* __restrict__ xmax,
-                               const float* __restrict__ tables,
-                               float* __restrict__ out, int n) {
-  const gtt::State s{x0, sc, ymax, xmax, nullptr,
-                     {chroma, nullptr, nullptr}};
-  compare_team<gtt::Team420y, 0, 64>(cand, s, tables, out, n);
-}
+#define GT_COMPARE_420Y(NAME, EXACT)                                        \
+  extern "C" __global__ void __launch_bounds__(L420y::THREADS,             \
+                                               gtt::Team420y::MINB)        \
+  NAME(const int* __restrict__ cand, const int* __restrict__ chroma,        \
+       const float* __restrict__ x0, const float* __restrict__ sc,          \
+       const int* __restrict__ ymax, const int* __restrict__ xmax,          \
+       const float* __restrict__ tables, float* __restrict__ out, int n) {  \
+    const gtt::State s{x0, sc, ymax, xmax, nullptr,                         \
+                       {chroma, nullptr, nullptr}};                         \
+    compare_team<gtt::Team420y, 0, 64, EXACT>(cand, s, tables, out, n);     \
+  }
+GT_COMPARE_420Y(tile_compare_lanes_420y_kernel, false)
+GT_COMPARE_420Y(tile_compare_lanes_420y_exact_kernel, true)
 
-extern "C" __global__ void __launch_bounds__(L420c::THREADS,
-                                             gtt::Team420c::MINB)
-tile_compare_lanes_420c_kernel(
-    const int* __restrict__ cand, const int* __restrict__ nu,
-    const int* __restrict__ nv, const int* __restrict__ y16,
-    const float* __restrict__ x0c, const float* __restrict__ scc,
-    const int* __restrict__ ymaxc, const int* __restrict__ xmaxc,
-    const int* __restrict__ validc, const float* __restrict__ tables,
-    float* __restrict__ out, int n) {
-  const gtt::State s{x0c, scc, ymaxc, xmaxc, validc, {nu, nv, y16}};
-  compare_team<gtt::Team420c, 64, 128>(cand, s, tables, out, n);
+#define GT_COMPARE_420C(NAME, EXACT)                                        \
+  extern "C" __global__ void __launch_bounds__(L420c::THREADS,             \
+                                               gtt::Team420c::MINB)        \
+  NAME(const int* __restrict__ cand, const int* __restrict__ nu,            \
+       const int* __restrict__ nv, const int* __restrict__ y16,             \
+       const float* __restrict__ x0c, const float* __restrict__ scc,        \
+       const int* __restrict__ ymaxc, const int* __restrict__ xmaxc,        \
+       const int* __restrict__ validc, const float* __restrict__ tables,    \
+       float* __restrict__ out, int n) {                                    \
+    const gtt::State s{x0c, scc, ymaxc, xmaxc, validc, {nu, nv, y16}};     \
+    compare_team<gtt::Team420c, 64, 128, EXACT>(cand, s, tables, out, n);   \
+  }
+GT_COMPARE_420C(tile_compare_lanes_420c_kernel, false)
+GT_COMPARE_420C(tile_compare_lanes_420c_exact_kernel, true)
+
+// Launches the closed-form kernel or, with `exact`, its table form over n
+// CTAs, each with the dynamic shared memory of its Layout L or LX.
+template <class L, class LX, class K, class... A>
+static int launch(K kernel, K kernel_exact, int exact, int n, void* stream,
+                  A... args) {
+  if (n <= 0) return 0;
+  K k = exact ? kernel_exact : kernel;
+  int rc = gtt::prefer_smem(k);
+  if (rc != 0) return rc;
+  k<<<n, L::THREADS, exact ? LX::BYTES : L::BYTES, (cudaStream_t)stream>>>(
+      args...);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int gt_tile_compare_lanes(const void* cand, const void* x0,
                                      const void* sc, const void* ymax,
                                      const void* xmax, const void* tables,
-                                     void* out, int n, void* stream) {
-  if (n <= 0) return 0;
-  int rc = gtt::prefer_smem(tile_compare_lanes_kernel);
-  if (rc != 0) return rc;
-  tile_compare_lanes_kernel<<<n, L444::THREADS, L444::BYTES,
-                              (cudaStream_t)stream>>>(
-      (const int*)cand, (const float*)x0, (const float*)sc, (const int*)ymax,
-      (const int*)xmax, (const float*)tables, (float*)out, n);
-  return (int)cudaGetLastError();
+                                     void* out, int n, int exact,
+                                     void* stream) {
+  return launch<L444, gtt::Layout<gtt::Team444, true>>(
+      tile_compare_lanes_kernel, tile_compare_lanes_exact_kernel, exact, n,
+      stream, (const int*)cand, (const float*)x0, (const float*)sc,
+      (const int*)ymax, (const int*)xmax, (const float*)tables, (float*)out,
+      n);
 }
 
 extern "C" int gt_tile_compare_lanes_420y(const void* cand,
@@ -127,37 +142,30 @@ extern "C" int gt_tile_compare_lanes_420y(const void* cand,
                                           const void* sc, const void* ymax,
                                           const void* xmax,
                                           const void* tables, void* out,
-                                          int n, void* stream) {
-  if (n <= 0) return 0;
-  int rc = gtt::prefer_smem(tile_compare_lanes_420y_kernel);
-  if (rc != 0) return rc;
-  tile_compare_lanes_420y_kernel<<<n, L420y::THREADS, L420y::BYTES,
-                                   (cudaStream_t)stream>>>(
-      (const int*)cand, (const int*)chroma, (const float*)x0,
-      (const float*)sc, (const int*)ymax, (const int*)xmax,
+                                          int n, int exact, void* stream) {
+  return launch<L420y, gtt::Layout<gtt::Team420y, true>>(
+      tile_compare_lanes_420y_kernel, tile_compare_lanes_420y_exact_kernel,
+      exact, n, stream, (const int*)cand, (const int*)chroma,
+      (const float*)x0, (const float*)sc, (const int*)ymax, (const int*)xmax,
       (const float*)tables, (float*)out, n);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int gt_tile_compare_lanes_420c(
     const void* cand, const void* nu, const void* nv, const void* y16,
     const void* x0c, const void* scc, const void* ymaxc, const void* xmaxc,
-    const void* validc, const void* tables, void* out, int n, void* stream) {
-  if (n <= 0) return 0;
-  int rc = gtt::prefer_smem(tile_compare_lanes_420c_kernel);
-  if (rc != 0) return rc;
-  tile_compare_lanes_420c_kernel<<<n, L420c::THREADS, L420c::BYTES,
-                                   (cudaStream_t)stream>>>(
-      (const int*)cand, (const int*)nu, (const int*)nv, (const int*)y16,
-      (const float*)x0c, (const float*)scc, (const int*)ymaxc,
-      (const int*)xmaxc, (const int*)validc, (const float*)tables,
-      (float*)out, n);
-  return (int)cudaGetLastError();
+    const void* validc, const void* tables, void* out, int n, int exact,
+    void* stream) {
+  return launch<L420c, gtt::Layout<gtt::Team420c, true>>(
+      tile_compare_lanes_420c_kernel, tile_compare_lanes_420c_exact_kernel,
+      exact, n, stream, (const int*)cand, (const int*)nu, (const int*)nv,
+      (const int*)y16, (const float*)x0c, (const float*)scc,
+      (const int*)ymaxc, (const int*)xmaxc, (const int*)validc,
+      (const float*)tables, (float*)out, n);
 }
 
-// The launch geometry of team compare `mode` (0: A'', 1: A, 2: A'):
-// threads and dynamic shared memory bytes per CTA, and the CTAs that fit
-// on one SM.
+// The launch geometry of team compare `mode` (0: A'', 1: A, 2: A'), in
+// the closed form: threads and dynamic shared memory bytes per CTA, and
+// the CTAs that fit on one SM.
 extern "C" int gt_tile_compare_lanes_geometry(int mode, int* threads,
                                               int* smem_bytes,
                                               int* ctas_per_sm) {

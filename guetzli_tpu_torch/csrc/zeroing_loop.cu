@@ -49,15 +49,15 @@ extern __shared__ float4 team_smem[];
 // The greedy loop of block b = blockIdx.x by the whole CTA. Every thread
 // runs the same steps and candidates and reaches every barrier; the
 // decision after each candidate is taken by every thread alike from the
-// shared errors.
-template <class M>
+// shared errors. EXACT: the DY reads by table (GUETZLI_TPU_EXACT_LUT).
+template <class M, bool EXACT>
 __device__ __forceinline__ void greedy_team(
     const int* __restrict__ coeffs, const int* __restrict__ order,
     const int* __restrict__ nrem, const float* __restrict__ lim,
     const gtt::State& state, const float* __restrict__ tables,
     int* __restrict__ out_idx, float* __restrict__ out_err, int n,
     int lookahead, int early_exit) {
-  using L = gtt::Layout<M>;
+  using L = gtt::Layout<M, EXACT>;
   float* sf = (float*)team_smem;
   int* si = (int*)(sf + L::NF);
   const int b = blockIdx.x, tid = threadIdx.x;
@@ -67,7 +67,7 @@ __device__ __forceinline__ void greedy_team(
     si[L::C + i] = coeffs[(long)i * n + b];
     si[L::ORD + i] = order[(long)i * n + b];
   }
-  gtt::load_state<M>(state, tables, sf, si, b, n, tid);
+  gtt::load_state<M, EXACT>(state, tables, sf, si, b, n, tid);
   __syncthreads();
 
   gtt::Rows R;
@@ -82,7 +82,8 @@ __device__ __forceinline__ void greedy_team(
     float best_err = 0.0f;
     int best_l = 0;
     for (int l = 0; l < nc; ++l) {
-      const float e = gtt::eval_team<M>(si + L::C, ord[l], sf, si, R, tid);
+      const float e =
+          gtt::eval_team<M, EXACT>(si + L::C, ord[l], sf, si, R, tid);
       if (l == 0 || e < best_err) {   // strict: ties keep the earlier
         best_err = e;
         best_l = l;
@@ -111,60 +112,76 @@ using L444 = gtt::Layout<gtt::Team444>;
 using L420y = gtt::Layout<gtt::Team420y>;
 using L420c = gtt::Layout<gtt::Team420c>;
 
-extern "C" __global__ void __launch_bounds__(L444::THREADS,
-                                             gtt::Team444::MINB)
-zeroing_loop_kernel(const int* __restrict__ coeffs,
-                    const int* __restrict__ order,
-                    const int* __restrict__ nrem,
-                    const float* __restrict__ lim,
-                    const float* __restrict__ x0,
-                    const float* __restrict__ sc,
-                    const int* __restrict__ ymax,
-                    const int* __restrict__ xmax,
-                    const float* __restrict__ tables,
-                    int* __restrict__ out_idx, float* __restrict__ out_err,
-                    int n, int lookahead, int early_exit) {
-  const gtt::State s{x0, sc, ymax, xmax, nullptr,
-                     {nullptr, nullptr, nullptr}};
-  greedy_team<gtt::Team444>(coeffs, order, nrem, lim, s, tables, out_idx,
-                            out_err, n, lookahead, early_exit);
-}
+// Each greedy kernel in the closed form and its table form (_exact,
+// GUETZLI_TPU_EXACT_LUT=1); a macro writes the pair.
+#define GT_LOOP_444(NAME, EXACT)                                            \
+  extern "C" __global__ void __launch_bounds__(L444::THREADS,              \
+                                               gtt::Team444::MINB)         \
+  NAME(const int* __restrict__ coeffs, const int* __restrict__ order,       \
+       const int* __restrict__ nrem, const float* __restrict__ lim,         \
+       const float* __restrict__ x0, const float* __restrict__ sc,          \
+       const int* __restrict__ ymax, const int* __restrict__ xmax,          \
+       const float* __restrict__ tables, int* __restrict__ out_idx,         \
+       float* __restrict__ out_err, int n, int lookahead, int early_exit) { \
+    const gtt::State s{x0, sc, ymax, xmax, nullptr,                         \
+                       {nullptr, nullptr, nullptr}};                        \
+    greedy_team<gtt::Team444, EXACT>(coeffs, order, nrem, lim, s, tables,   \
+                                     out_idx, out_err, n, lookahead,        \
+                                     early_exit);                           \
+  }
+GT_LOOP_444(zeroing_loop_kernel, false)
+GT_LOOP_444(zeroing_loop_exact_kernel, true)
 
-extern "C" __global__ void __launch_bounds__(L420y::THREADS,
-                                             gtt::Team420y::MINB)
-zeroing_loop_420y_kernel(const int* __restrict__ coeffs,
-                         const int* __restrict__ order,
-                         const int* __restrict__ nrem,
-                         const float* __restrict__ lim,
-                         const int* __restrict__ chroma,
-                         const float* __restrict__ x0,
-                         const float* __restrict__ sc,
-                         const int* __restrict__ ymax,
-                         const int* __restrict__ xmax,
-                         const float* __restrict__ tables,
-                         int* __restrict__ out_idx,
-                         float* __restrict__ out_err, int n, int lookahead,
-                         int early_exit) {
-  const gtt::State s{x0, sc, ymax, xmax, nullptr,
-                     {chroma, nullptr, nullptr}};
-  greedy_team<gtt::Team420y>(coeffs, order, nrem, lim, s, tables, out_idx,
-                             out_err, n, lookahead, early_exit);
-}
+#define GT_LOOP_420Y(NAME, EXACT)                                           \
+  extern "C" __global__ void __launch_bounds__(L420y::THREADS,             \
+                                               gtt::Team420y::MINB)        \
+  NAME(const int* __restrict__ coeffs, const int* __restrict__ order,       \
+       const int* __restrict__ nrem, const float* __restrict__ lim,         \
+       const int* __restrict__ chroma, const float* __restrict__ x0,        \
+       const float* __restrict__ sc, const int* __restrict__ ymax,          \
+       const int* __restrict__ xmax, const float* __restrict__ tables,      \
+       int* __restrict__ out_idx, float* __restrict__ out_err,              \
+       int n, int lookahead, int early_exit) {                              \
+    const gtt::State s{x0, sc, ymax, xmax, nullptr,                         \
+                       {chroma, nullptr, nullptr}};                         \
+    greedy_team<gtt::Team420y, EXACT>(coeffs, order, nrem, lim, s, tables,  \
+                                      out_idx, out_err, n, lookahead,       \
+                                      early_exit);                          \
+  }
+GT_LOOP_420Y(zeroing_loop_420y_kernel, false)
+GT_LOOP_420Y(zeroing_loop_420y_exact_kernel, true)
 
-extern "C" __global__ void __launch_bounds__(L420c::THREADS,
-                                             gtt::Team420c::MINB)
-zeroing_loop_420c_kernel(
-    const int* __restrict__ coeffs, const int* __restrict__ order,
-    const int* __restrict__ nrem, const float* __restrict__ lim,
-    const int* __restrict__ nu, const int* __restrict__ nv,
-    const int* __restrict__ y16, const float* __restrict__ x0c,
-    const float* __restrict__ scc, const int* __restrict__ ymaxc,
-    const int* __restrict__ xmaxc, const int* __restrict__ validc,
-    const float* __restrict__ tables, int* __restrict__ out_idx,
-    float* __restrict__ out_err, int n, int lookahead, int early_exit) {
-  const gtt::State s{x0c, scc, ymaxc, xmaxc, validc, {nu, nv, y16}};
-  greedy_team<gtt::Team420c>(coeffs, order, nrem, lim, s, tables, out_idx,
-                             out_err, n, lookahead, early_exit);
+#define GT_LOOP_420C(NAME, EXACT)                                           \
+  extern "C" __global__ void __launch_bounds__(L420c::THREADS,             \
+                                               gtt::Team420c::MINB)        \
+  NAME(const int* __restrict__ coeffs, const int* __restrict__ order,       \
+       const int* __restrict__ nrem, const float* __restrict__ lim,         \
+       const int* __restrict__ nu, const int* __restrict__ nv,              \
+       const int* __restrict__ y16, const float* __restrict__ x0c,          \
+       const float* __restrict__ scc, const int* __restrict__ ymaxc,        \
+       const int* __restrict__ xmaxc, const int* __restrict__ validc,       \
+       const float* __restrict__ tables, int* __restrict__ out_idx,         \
+       float* __restrict__ out_err, int n, int lookahead, int early_exit) { \
+    const gtt::State s{x0c, scc, ymaxc, xmaxc, validc, {nu, nv, y16}};     \
+    greedy_team<gtt::Team420c, EXACT>(coeffs, order, nrem, lim, s, tables,  \
+                                      out_idx, out_err, n, lookahead,       \
+                                      early_exit);                          \
+  }
+GT_LOOP_420C(zeroing_loop_420c_kernel, false)
+GT_LOOP_420C(zeroing_loop_420c_exact_kernel, true)
+
+// Launches the closed-form kernel or, with `exact`, its table form over n
+// CTAs, each with the dynamic shared memory of its Layout L or LX.
+template <class L, class LX, class K, class... A>
+static int launch(K kernel, K kernel_exact, int exact, int n, void* stream,
+                  A... args) {
+  if (n <= 0) return 0;
+  K k = exact ? kernel_exact : kernel;
+  int rc = gtt::prefer_smem(k);
+  if (rc != 0) return rc;
+  k<<<n, L::THREADS, exact ? LX::BYTES : L::BYTES, (cudaStream_t)stream>>>(
+      args...);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int gt_zeroing_loop(const void* coeffs, const void* order,
@@ -173,17 +190,13 @@ extern "C" int gt_zeroing_loop(const void* coeffs, const void* order,
                                const void* ymax, const void* xmax,
                                const void* tables, void* out_idx,
                                void* out_err, int n, int lookahead,
-                               int early_exit, void* stream) {
-  if (n <= 0) return 0;
-  int rc = gtt::prefer_smem(zeroing_loop_kernel);
-  if (rc != 0) return rc;
-  zeroing_loop_kernel<<<n, L444::THREADS, L444::BYTES,
-                        (cudaStream_t)stream>>>(
+                               int early_exit, int exact, void* stream) {
+  return launch<L444, gtt::Layout<gtt::Team444, true>>(
+      zeroing_loop_kernel, zeroing_loop_exact_kernel, exact, n, stream,
       (const int*)coeffs, (const int*)order, (const int*)nrem,
       (const float*)lim, (const float*)x0, (const float*)sc,
       (const int*)ymax, (const int*)xmax, (const float*)tables,
       (int*)out_idx, (float*)out_err, n, lookahead, early_exit);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int gt_zeroing_loop_420y(const void* coeffs, const void* order,
@@ -192,19 +205,15 @@ extern "C" int gt_zeroing_loop_420y(const void* coeffs, const void* order,
                                     const void* sc, const void* ymax,
                                     const void* xmax, const void* tables,
                                     void* out_idx, void* out_err, int n,
-                                    int lookahead, int early_exit,
+                                    int lookahead, int early_exit, int exact,
                                     void* stream) {
-  if (n <= 0) return 0;
-  int rc = gtt::prefer_smem(zeroing_loop_420y_kernel);
-  if (rc != 0) return rc;
-  zeroing_loop_420y_kernel<<<n, L420y::THREADS, L420y::BYTES,
-                             (cudaStream_t)stream>>>(
-      (const int*)coeffs, (const int*)order, (const int*)nrem,
+  return launch<L420y, gtt::Layout<gtt::Team420y, true>>(
+      zeroing_loop_420y_kernel, zeroing_loop_420y_exact_kernel, exact, n,
+      stream, (const int*)coeffs, (const int*)order, (const int*)nrem,
       (const float*)lim, (const int*)chroma, (const float*)x0,
       (const float*)sc, (const int*)ymax, (const int*)xmax,
       (const float*)tables, (int*)out_idx, (float*)out_err, n, lookahead,
       early_exit);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int gt_zeroing_loop_420c(
@@ -212,22 +221,19 @@ extern "C" int gt_zeroing_loop_420c(
     const void* nu, const void* nv, const void* y16, const void* x0c,
     const void* scc, const void* ymaxc, const void* xmaxc,
     const void* validc, const void* tables, void* out_idx, void* out_err,
-    int n, int lookahead, int early_exit, void* stream) {
-  if (n <= 0) return 0;
-  int rc = gtt::prefer_smem(zeroing_loop_420c_kernel);
-  if (rc != 0) return rc;
-  zeroing_loop_420c_kernel<<<n, L420c::THREADS, L420c::BYTES,
-                             (cudaStream_t)stream>>>(
-      (const int*)coeffs, (const int*)order, (const int*)nrem,
+    int n, int lookahead, int early_exit, int exact, void* stream) {
+  return launch<L420c, gtt::Layout<gtt::Team420c, true>>(
+      zeroing_loop_420c_kernel, zeroing_loop_420c_exact_kernel, exact, n,
+      stream, (const int*)coeffs, (const int*)order, (const int*)nrem,
       (const float*)lim, (const int*)nu, (const int*)nv, (const int*)y16,
       (const float*)x0c, (const float*)scc, (const int*)ymaxc,
       (const int*)xmaxc, (const int*)validc, (const float*)tables,
       (int*)out_idx, (float*)out_err, n, lookahead, early_exit);
-  return (int)cudaGetLastError();
 }
 
-// The launch geometry of team kernel `mode` (0: B, 1: B'', 2: B'): threads
-// and dynamic shared memory bytes per CTA, and the CTAs that fit on one SM.
+// The launch geometry of team kernel `mode` (0: B, 1: B'', 2: B'), in the
+// closed form: threads and dynamic shared memory bytes per CTA, and the
+// CTAs that fit on one SM.
 extern "C" int gt_zeroing_loop_geometry(int mode, int* threads,
                                         int* smem_bytes, int* ctas_per_sm) {
   if (mode == 0)

@@ -40,31 +40,32 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Entry point -> (library, C function, ctypes argument types): every
 # pointer and the stream as c_void_p. A compare takes (candidates, state
-# pointers..., tables, out, n, stream), kernel C's state being (xyb0,
-# scales, sy, sx); a greedy loop takes (coeffs, order, nrem, lim, state
-# pointers..., tables, out_idx, out_err, n, lookahead, early_exit,
-# stream); a geometry query takes (mode, &threads, &smem_bytes,
-# &ctas_per_sm).
+# pointers..., tables, out, n, exact, stream) and kernel C (candidates,
+# xyb0, scales, sy, sx, tables, out, n, stream); a greedy loop takes
+# (coeffs, order, nrem, lim, state pointers..., tables, out_idx,
+# out_err, n, lookahead, early_exit, exact, stream), exact 1 for the
+# table form (GUETZLI_TPU_EXACT_LUT); a geometry query takes (mode,
+# &threads, &smem_bytes, &ctas_per_sm).
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
     "tile_compare_lanes": ("tile_compare_lanes", "gt_tile_compare_lanes",
-                           [_P] * 7 + [_I, _P]),
+                           [_P] * 7 + [_I, _I, _P]),
     "tile_compare_lanes_420y": ("tile_compare_lanes",
                                 "gt_tile_compare_lanes_420y",
-                                [_P] * 8 + [_I, _P]),
+                                [_P] * 8 + [_I, _I, _P]),
     "tile_compare_lanes_420c": ("tile_compare_lanes",
                                 "gt_tile_compare_lanes_420c",
-                                [_P] * 11 + [_I, _P]),
+                                [_P] * 11 + [_I, _I, _P]),
     "tile_compare_lanes_geometry": ("tile_compare_lanes",
                                     "gt_tile_compare_lanes_geometry",
                                     [_I, _P, _P, _P]),
     "zeroing_loop": ("zeroing_loop", "gt_zeroing_loop",
-                     [_P] * 11 + [_I, _I, _I, _P]),
+                     [_P] * 11 + [_I] * 4 + [_P]),
     "zeroing_loop_420y": ("zeroing_loop", "gt_zeroing_loop_420y",
-                          [_P] * 12 + [_I, _I, _I, _P]),
+                          [_P] * 12 + [_I] * 4 + [_P]),
     "zeroing_loop_420c": ("zeroing_loop", "gt_zeroing_loop_420c",
-                          [_P] * 15 + [_I, _I, _I, _P]),
+                          [_P] * 15 + [_I] * 4 + [_P]),
     "zeroing_loop_geometry": ("zeroing_loop", "gt_zeroing_loop_geometry",
                               [_I, _P, _P, _P]),
     "tile_compare": ("tile_compare", "gt_tile_compare", [_P] * 7 + [_I, _P]),

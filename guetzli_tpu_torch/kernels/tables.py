@@ -22,7 +22,7 @@ _F32 = np.float32
 LAYOUT = {
     "T_IDCT": (0, 64), "T_BLUR": (64, 64), "T_DFT_RE": (128, 64),
     "T_DFT_IM": (192, 64), "T_CSF": (256, 64), "T_SRGB": (320, 256),
-    "T_SCAL": (576, 58),
+    "T_SCAL": (576, 58), "T_LFDY_LUT": (640, 21), "T_HFDY_LUT": (661, 21),
 }
 SCALARS = {
     "S_MIX": 0, "S_BIAS": 9, "S_XYB": 12, "S_GMIN": 21, "S_GRANGE": 22,
@@ -31,7 +31,11 @@ SCALARS = {
     "S_HFDY": 46, "S_CSF0": 49, "S_FFTMUL": 50, "S_ACX": 51, "S_ACZ": 52,
     "S_ACY": 53, "S_ACY2": 54, "S_YLIM": 55, "S_EW": 56, "S_1MEW": 57,
 }
-N_TABLES = 640
+# The closed forms' kernels load the first N_CLOSED entries into shared
+# memory; the table forms' (GUETZLI_TPU_EXACT_LUT) all N_TABLES, the two
+# DY tables included.
+N_CLOSED = 640
+N_TABLES = 682
 
 
 def _scalars():
@@ -66,7 +70,9 @@ def _scalars():
 def build(device) -> torch.Tensor:
     """The [N_TABLES] float32 table buffer on `device`. The sRGB->linear
     entries are image.srgb_table on that device, the table the plain
-    version reads."""
+    version reads; the LF and HF DY tables are read by the table forms'
+    kernels, as the plain version reads them under
+    GUETZLI_TPU_EXACT_LUT=1."""
     buf = np.zeros(N_TABLES, dtype=np.float32)
     buf[0:64] = consts.IDCT_MATRIX.astype(np.float32).ravel()
     buf[64:128] = tl._BLUR8.ravel()
@@ -74,6 +80,8 @@ def build(device) -> torch.Tensor:
     buf[192:256] = bd.DFT8_IM.ravel()
     buf[256:320] = tl.CSF_D.ravel()
     buf[576:576 + LAYOUT["T_SCAL"][1]] = _scalars()
+    buf[640:661] = consts.LF_COLOR_DIFF_DY.astype(np.float32)
+    buf[661:682] = consts.HF_COLOR_DIFF_DY.astype(np.float32)
     out = torch.as_tensor(buf, device=device)
     out[320:576] = srgb_table(device)
     return out

@@ -64,15 +64,16 @@ def tile_compare_plain(cand, xyb0_tiles, scales, sy, sx):
     """The plain PyTorch version of kernel C, in its order: the integer
     IDCT, the selection contractions (rows by sy, then columns by sx), the
     color transform, then the lane-major float stage
-    (ops/tiles_lanes.finish_lanes) on the transposed block. Arguments and
-    result as ``tile_compare``."""
+    (ops/tiles_lanes.finish_lanes) on the transposed block, in closed form
+    whatever GUETZLI_TPU_EXACT_LUT says (the JAX kernel has its own closed
+    forms). Arguments and result as ``tile_compare``."""
     n = cand.shape[0]
     v = tl.idct_lanes(cand.reshape(n, 3, 8, 8).permute(1, 2, 3, 0))
     v = _select(sy.permute(1, 2, 0), v, -3)               # rows (y)
     v = _select(sx.permute(1, 2, 0), v, -2)               # columns (x)
     rgb = tl.ycbcr_to_rgb_lanes(v[0], v[1], v[2])
     x0 = xyb0_tiles.reshape(n, 3, 8, 8).permute(1, 2, 3, 0)
-    return tl.finish_lanes(rgb, x0, scales.transpose(0, 1))
+    return tl.finish_lanes(rgb, x0, scales.transpose(0, 1), exact_lut=False)
 
 
 def tile_compare(cand, xyb0_tiles, scales, sy, sx):
@@ -115,18 +116,12 @@ def team_geometry(device):
 
 # -- the staged greedy loop's layout (mode "444p") ---------------------------
 
-def lanes_aux(xyb0_tiles, scales, sy, sx):
-    """Mode 444p's frozen pass state (blocks leading) with the block axis
-    moved last, where the staged greedy loop gathers its lanes: [3, 64, N],
-    [3, N], [8, 8, N], [8, 8, N], all contiguous."""
-    return tuple(a.movedim(0, -1).contiguous()
-                 for a in (xyb0_tiles, scales, sy, sx))
-
-
 def compare_lanes(cand_t, x0_l, sc_l, sy_l, sx_l):
     """Kernel C on the staged loop's operands: lane-major candidates
-    [3, 8, 8, N] and lanes_aux state, moved back to blocks leading for
-    ``tile_compare``. Returns [N] float32."""
+    [3, 8, 8, N] and the mode's state with the block axis last
+    (search/zeroing._moved_aux: [3, 64, N], [3, N], [8, 8, N], [8, 8, N]),
+    moved back to blocks leading for ``tile_compare``. Returns [N]
+    float32."""
     def lead(a):
         return a.movedim(-1, 0).contiguous()
     n = cand_t.shape[-1]

@@ -19,11 +19,14 @@ import ctypes
 
 import torch
 
+from guetzli_tpu_torch import config
 from guetzli_tpu_torch.kernels import build, tables
 from guetzli_tpu_torch.ops.tiles_lanes import COMPARE
 
-# Kernel launches per mode since the last reset (a caller may zero them).
+# Kernel launches per mode since the last reset (a caller may zero them),
+# and those of the EXACT_LUT variants.
 launches = {"444": 0, "420y": 0, "420c": 0}
+exact_launches = {"444": 0, "420y": 0, "420c": 0}
 
 # The C entry point (csrc/tile_compare_lanes.cu) of each mode.
 ENTRY = {"444": "tile_compare_lanes", "420y": "tile_compare_lanes_420y",
@@ -44,6 +47,18 @@ def table_buffer(device):
     if key not in _tables:
         _tables[key] = tables.build(device)
     return _tables[key]
+
+
+def exact_variant(exact_lut):
+    """Whether a launch takes the EXACT_LUT variant (the kernel's table
+    form): `exact_lut`, or when None GUETZLI_TPU_EXACT_LUT."""
+    return config.exact_lut() if exact_lut is None else bool(exact_lut)
+
+
+def count_launch(counts, mode):
+    """One launch of `mode` in the launch counts `counts`."""
+    with build.lock:
+        counts[mode] += 1
 
 
 def check(t, name, dtype, shape, device):
@@ -89,33 +104,34 @@ def check_aux(aux, mode, n, device):
         check(a, name, dtype, shape, device)
 
 
-def tile_compare_lanes(cand_t, *aux, mode="444"):
+def tile_compare_lanes(cand_t, *aux, mode="444", exact_lut=None):
     """Block errors [N] float32.
 
     cand_t: [3, 8, 8, N] int32 dequantized candidate coefficients (mode
     "420y" reads plane 0, "420c" planes 1 and 2); aux: the mode's
     lane-major frozen state (aux_specs): for "444" x0 [3, 8, 8, N] float32
     original opsin tiles, sc [3, N] float32 mask scales, ymax, xmax [N]
-    int32 edge clamps."""
+    int32 edge clamps. exact_lut: the DY reads by table (None:
+    GUETZLI_TPU_EXACT_LUT)."""
     n = cand_t.shape[-1]
     dev = cand_t.device
     check(cand_t, "cand_t", _I32, (3, 8, 8, n), dev)
     check_aux(aux, mode, n, dev)
+    exact = exact_variant(exact_lut)
     if dev.type == "cpu":
-        return COMPARE[mode](cand_t, *aux)
+        return COMPARE[mode](cand_t, *aux, exact_lut=exact)
     if dev.type != "cuda":
         raise ValueError("unsupported device %s" % dev)
     fn = build.load(ENTRY[mode])
     tab = table_buffer(dev)
     out = torch.empty(n, dtype=_F32, device=dev)
     rc = fn(cand_t.data_ptr(), *[a.data_ptr() for a in aux],
-            tab.data_ptr(), out.data_ptr(), n,
+            tab.data_ptr(), out.data_ptr(), n, int(exact),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("%s launch failed: CUDA error %d"
                            % (ENTRY[mode], rc))
-    with build.lock:
-        launches[mode] += 1
+    count_launch(exact_launches if exact else launches, mode)
     return out
 
 

@@ -17,18 +17,24 @@ search/zeroing.py, whose rails equal the fused kernel's bit for bit.
 tensors it launches the kernel or raises; it never falls back.
 """
 
+from functools import partial
+
 import torch
 
 from guetzli_tpu_torch.kernels import build
 from guetzli_tpu_torch.kernels.tile_compare_lanes import (check, check_aux,
+                                                          count_launch,
+                                                          exact_variant,
                                                           geometry,
                                                           table_buffer)
 from guetzli_tpu_torch.ops.tiles_lanes import COMPARE
 
 K = 192  # 3 * 64 candidate slots per block
 
-# Kernel launches per mode since the last reset (a caller may zero them).
+# Kernel launches per mode since the last reset (a caller may zero them),
+# and those of the EXACT_LUT variants.
 launches = {"444": 0, "420y": 0, "420c": 0}
+exact_launches = {"444": 0, "420y": 0, "420c": 0}
 
 # The C entry point (csrc/zeroing_loop.cu) of each mode.
 ENTRY = {"444": "zeroing_loop", "420y": "zeroing_loop_420y",
@@ -107,14 +113,15 @@ def zeroing_loop_plain(coeffs_t, order_t, nrem, lim, aux, mode="444",
 
 
 def zeroing_loop(coeffs_t, order_t, nrem, lim, aux, mode="444",
-                 lookahead=3, early_exit=False):
+                 lookahead=3, early_exit=False, exact_lut=None):
     """Run every block's greedy zeroing loop.
 
     coeffs_t: [192, N] int32 dequantized coefficients (row c*64+k);
     order_t: [192, N] int32 score-sorted candidate order; nrem: [N] int32
     candidate counts; lim: [N] float32 error limits (read with early_exit
     only); aux: the mode's lane-major frozen state
-    (kernels/tile_compare_lanes.aux_specs).
+    (kernels/tile_compare_lanes.aux_specs); exact_lut: the DY reads by
+    table (None: GUETZLI_TPU_EXACT_LUT).
     Returns (out_idx [192, N] int32, out_err [192, N] float32): row t of
     block b holds the t-th zeroed slot and the block error after it;
     rows past the block's last step hold (0, +inf)."""
@@ -125,9 +132,11 @@ def zeroing_loop(coeffs_t, order_t, nrem, lim, aux, mode="444",
     check(nrem, "nrem", torch.int32, (n,), dev)
     check(lim, "lim", torch.float32, (n,), dev)
     check_aux(aux, mode, n, dev)
+    exact = exact_variant(exact_lut)
     if dev.type == "cpu":
-        return zeroing_loop_plain(coeffs_t, order_t, nrem, lim, aux, mode,
-                                  lookahead, early_exit)
+        return zeroing_loop_plain(
+            coeffs_t, order_t, nrem, lim, aux, mode, lookahead, early_exit,
+            partial(COMPARE[mode], exact_lut=exact))
     if dev.type != "cuda":
         raise ValueError("unsupported device %s" % dev)
     fn = build.load(ENTRY[mode])
@@ -137,12 +146,12 @@ def zeroing_loop(coeffs_t, order_t, nrem, lim, aux, mode="444",
     rc = fn(coeffs_t.data_ptr(), order_t.data_ptr(), nrem.data_ptr(),
             lim.data_ptr(), *[a.data_ptr() for a in aux], tab.data_ptr(),
             out_idx.data_ptr(), out_err.data_ptr(), n, lookahead,
-            int(bool(early_exit)), torch.cuda.current_stream(dev).cuda_stream)
+            int(bool(early_exit)), int(exact),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("%s launch failed: CUDA error %d"
                            % (ENTRY[mode], rc))
-    with build.lock:
-        launches[mode] += 1
+    count_launch(exact_launches if exact else launches, mode)
     return out_idx, out_err
 
 

@@ -7,8 +7,10 @@ Each image is encoded at q95 (process_rgb, the CLI's path for a PNG) in
 a fresh process, which reports its peak RSS (ru_maxrss) and, on the card,
 torch.cuda.max_memory_allocated over the encode. A least-squares line,
 base MB + bytes per pixel, is fitted to each; the CLI's memory guard
-warns from the fit (cli.py). An image argument "tile2x2:PATH" is the PNG
-at PATH tiled 2x2 in memory. Default images: photo_mosaic1.png
+warns from the fit (cli.py). An image argument "tileCxR:PATH" is the PNG
+at PATH tiled C across and R down in memory ("tile2x2:PATH",
+"tile3x2:PATH": photo_mosaic1 tiled 3x2 is 4332x1816, 7.87 MPix). Default
+images: photo_mosaic1.png
 (1444x908), photo_mosaic2.png and photo_mosaic1.png tiled 2x2 (2888x1816).
 Prints one JSON line: the card's name and power limit, one row per image
 and the two fits.
@@ -16,6 +18,7 @@ and the two fits.
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -25,25 +28,34 @@ DEFAULT = (str(_CORPUS / "photo_mosaic1.png"),
            "tile2x2:" + str(_CORPUS / "photo_mosaic1.png"))
 
 
+def load_image(image):
+    """(rgb uint8 [h, w, 3], w, h) of an image argument: a PNG path, or
+    "tileCxR:PATH", the PNG tiled C across and R down."""
+    import numpy as np
+
+    from guetzli_tpu_torch.io.png import read_png
+    tile = re.match(r"tile(\d+)x(\d+):(.+)$", image)
+    rgb, w, h = read_png(pathlib.Path(tile.group(3) if tile
+                                      else image).read_bytes())
+    if tile:
+        nx, ny = int(tile.group(1)), int(tile.group(2))
+        rgb = np.ascontiguousarray(np.tile(rgb, (ny, nx, 1)))
+        w, h = nx * w, ny * h
+    return rgb, w, h
+
+
 def _child(image, device):
     import resource
     import time
 
-    import numpy as np
     import torch
 
     from guetzli_tpu_torch import consts
     from guetzli_tpu_torch.device import resolve
-    from guetzli_tpu_torch.io.png import read_png
     from guetzli_tpu_torch.search.processor import (Params, ProcessStats,
                                                     process_rgb)
     dev = resolve(device)
-    tile = image.startswith("tile2x2:")
-    rgb, w, h = read_png(pathlib.Path(image.split(":", 1)[-1] if tile
-                                      else image).read_bytes())
-    if tile:
-        rgb, w, h = np.ascontiguousarray(np.tile(rgb, (2, 2, 1))), 2 * w, \
-            2 * h
+    rgb, w, h = load_image(image)
     if dev.type == "cuda":
         torch.zeros(1, device=dev)
         torch.cuda.reset_peak_memory_stats(dev)

@@ -5,12 +5,20 @@ shared library (``_cache/``, listed in .gitignore) and binds it via ctypes.
 The scan codec, histogram and quantize helpers keep their pure-Python
 fallbacks when the toolchain is missing; the PNG reader does not (it
 raises, see io/png.py).
+
+GUETZLI_TPU_NO_NATIVE (any non-empty value, read at call time) makes
+``get_lib`` return None, so the codec, the histograms and the flip loop
+take their Python forms, which give the same bytes. The PNG reader then
+raises: the port has no second decoder (the JAX package falls back to
+PIL there).
 """
 
 import ctypes
 import pathlib
 import subprocess
 import threading
+
+from guetzli_tpu_torch import config
 
 _DIR = pathlib.Path(__file__).parent
 _SRCS = [_DIR / "src" / "native.cc", _DIR / "src" / "png_decode.cc"]
@@ -44,7 +52,10 @@ def _build():
 
 
 def get_lib():
-    """The ctypes library handle, or None if it cannot be built."""
+    """The ctypes library handle, or None if it cannot be built or
+    GUETZLI_TPU_NO_NATIVE is set."""
+    if not config.native():
+        return None
     with _lock:
         return _get_lib()
 
@@ -77,5 +88,8 @@ def require_lib():
     """The ctypes library handle; raises if it cannot be built."""
     lib = get_lib()
     if lib is None:
+        if not config.native():
+            raise RuntimeError("the native library is turned off by "
+                               "GUETZLI_TPU_NO_NATIVE")
         raise RuntimeError("native library build failed: %s" % _build_error)
     return lib

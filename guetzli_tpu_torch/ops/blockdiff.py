@@ -8,13 +8,17 @@ matrix products.
 
 The LUT reads use the closed forms of the JAX package's default
 (``GUETZLI_TPU_EXACT_LUT`` unset): piecewise-linear progressions and the
-smooth masking rational, evaluated directly.
+smooth masking rational, evaluated directly. Under
+``GUETZLI_TPU_EXACT_LUT=1`` they read the reference's tables
+(``interpolate``), a different function in the last bits: the
+progressions differ from their tables on 20-40% of inputs, the masking
+rational on nearly all.
 """
 
 import numpy as np
 import torch
 
-from guetzli_tpu_torch import consts
+from guetzli_tpu_torch import config, consts
 from guetzli_tpu_torch.ops.fp import div, sqrt
 
 # 8-point DFT matrix, split into real and imaginary parts.
@@ -40,6 +44,50 @@ HF_DX = pw_progression_params(11.38708334481672, 14.550189611520716)
 LF_DY = pw_progression_params(0.0, 5.2511644570349185)
 
 
+_TABLES = {}
+
+
+def table_on(lut, device):
+    """consts table `lut` (a module-level array) as float32 on `device`,
+    made once."""
+    key = (id(lut), str(device))
+    if key not in _TABLES:
+        _TABLES[key] = torch.as_tensor(np.asarray(lut, dtype=np.float32),
+                                       device=device)
+    return _TABLES[key]
+
+
+def interpolate(lut, s):
+    """Odd (sign-preserving) piecewise-linear read of table `lut`
+    (butteraugli.cc:249-263; JAX ops/blockdiff.interpolate) at s: the two
+    entries around |s| by gather, then l0 + frac * (l1 - l0) in JAX's
+    order, the last entry from n - 1 on. JAX reads the entries by a
+    one-hot contraction, one 1.0 * value term each, so the gather gives
+    its bits."""
+    table = table_on(lut, s.device)
+    n = table.shape[0]
+    ix = s.abs()
+    # Clamped in float first: a float past int32's range converts to an
+    # undefined int; NaN converts to some int that the clamp takes to 0.
+    base = ix.clamp(max=float(n - 1)).to(torch.int32).clamp(0, n - 1)
+    safe = base.clamp(max=n - 2).long()
+    frac = ix - base.to(ix.dtype)
+    l0 = table[safe]
+    l1 = table[safe + 1]
+    res = l0 + frac * (l1 - l0)
+    res = torch.where(base >= n - 1, table[n - 1], res)
+    return torch.where(s < 0, -res, res)
+
+
+def interpolate_clamp_negative(lut, s):
+    """interpolate() with inputs below zero clamped (butteraugli.cc:265)."""
+    return interpolate(lut, s.clamp(min=0.0))
+
+
+def _exact(exact_lut):
+    return config.exact_lut() if exact_lut is None else exact_lut
+
+
 def pw_progression(params, s):
     """Odd piecewise-linear read of a 21-entry arithmetic-progression LUT
     (consts._cumulative_lut), in closed form."""
@@ -54,25 +102,38 @@ def pw_progression(params, s):
     return torch.where(s < 0, -res, res)
 
 
-def color_diff_dy_hf(s):
+# exact_lut: None follows GUETZLI_TPU_EXACT_LUT; False and True choose
+# the closed form and the table (kernel C's plain version keeps the
+# closed forms whatever the knob says, as the JAX kernel does).
+
+def color_diff_dy_hf(s, exact_lut=None):
     """HF_COLOR_DIFF_DY read (butteraugli.cc:200-211)."""
+    if _exact(exact_lut):
+        return interpolate(consts.HF_COLOR_DIFF_DY, s)
     return pw_progression(HF_DY, s)
 
 
-def color_diff_dx_hf(s):
+def color_diff_dx_hf(s, exact_lut=None):
     """HF_COLOR_DIFF_DX read (butteraugli.cc:213-224)."""
+    if _exact(exact_lut):
+        return interpolate(consts.HF_COLOR_DIFF_DX, s)
     return pw_progression(HF_DX, s)
 
 
-def color_diff_dy_lf(s):
+def color_diff_dy_lf(s, exact_lut=None):
     """LF_COLOR_DIFF_DY read (butteraugli.cc:236-247)."""
+    if _exact(exact_lut):
+        return interpolate(consts.LF_COLOR_DIFF_DY, s)
     return pw_progression(LF_DY, s)
 
 
-def mask_lut(key, s):
+def mask_lut(key, s, exact_lut=None):
     """Masking LUT read (butteraugli.cc:1242-1254, Mask :1495-1567) in
     the closed form of the sampled rational
-    ``(1 + extmul * (mul / (0.01 * scaler * i + offset) + extoff))^2``."""
+    ``(1 + extmul * (mul / (0.01 * scaler * i + offset) + extoff))^2``,
+    or under the knob the 512-entry table."""
+    if _exact(exact_lut):
+        return interpolate_clamp_negative(consts.MASK_LUTS[key], s)
     extmul, extoff, mul, offset, scaler = (
         _F32(v) for v in consts.MASK_LUT_PARAMS[key])
     ix = s.clamp(0.0, 511.0)
@@ -81,18 +142,18 @@ def mask_lut(key, s):
     return v * v
 
 
-def xyb_low_freq_to_vals(x, y, z):
+def xyb_low_freq_to_vals(x, y, z, exact_lut=None):
     """butteraugli.cc:305-315."""
     z = z + float(_F32(consts.XYB_LF_Y_TO_Z)) * y
     valz = z * float(_F32(consts.XYB_LF_ZMUL))
     valx = x * float(_F32(consts.XYB_LF_XMUL))
-    valy = color_diff_dy_lf(y * float(_F32(consts.XYB_LF_YMUL)))
+    valy = color_diff_dy_lf(y * float(_F32(consts.XYB_LF_YMUL)), exact_lut)
     return valx, valy, valz
 
 
-def xyb_diff_low_freq_squared(x, y, z):
+def xyb_diff_low_freq_squared(x, y, z, exact_lut=None):
     """XybDiffLowFreqSquaredAccumulate against (0,0,0), factor 1."""
-    vx, vy, vz = xyb_low_freq_to_vals(x, y, z)
+    vx, vy, vz = xyb_low_freq_to_vals(x, y, z, exact_lut)
     return vx * vx, vy * vy, vz * vz
 
 

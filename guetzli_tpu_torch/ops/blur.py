@@ -12,7 +12,8 @@ quirks, which materially affect output parity:
 
 The two passes are ``F.conv1d`` over rows with the stride as the step. On
 the card that is cuDNN, which must not run in TF32 (device.resolve turns
-TF32 off).
+TF32 off). The nearest upsample's column pass follows
+GUETZLI_TPU_LANE_SAFE (``upsample_columns``).
 """
 
 from functools import lru_cache
@@ -53,6 +54,28 @@ def _border_weights(size: int, sigma: float, border_ratio: float):
         w[ox] = taps[lo - x + offset:hi - x + offset + 1].sum()
     w = (1.0 - border_ratio) * w + border_ratio * full
     return (1.0 / w).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _upsample_matrix(dw: int, w: int, step: int):
+    """[dw, w] 0/1 matrix: column j reads subsampled position j // step."""
+    u = np.zeros((dw, w), dtype=np.float32)
+    u[np.minimum(np.arange(w) // step, dw - 1), np.arange(w)] = 1.0
+    return u
+
+
+def upsample_columns(t, step, w):
+    """The nearest upsample's column pass [..., dw] -> [..., w]: a
+    repeat, or under GUETZLI_TPU_LANE_SAFE=1 the JAX package's
+    accelerator form, a matmul with a 0/1 matrix (ops/layout.py). Both
+    are exact: each output is one 1.0 * value product (TF32 is off,
+    device.resolve)."""
+    from guetzli_tpu_torch.ops.layout import lane_safe
+    if not lane_safe():
+        return t.repeat_interleave(step, dim=-1)[..., :w]
+    u = torch.as_tensor(_upsample_matrix(t.shape[-1], w, step),
+                        device=t.device)
+    return torch.matmul(t, u)
 
 
 def _conv_rows(x, taps, offset, step):
@@ -107,7 +130,7 @@ def blur(channel, sigma: float, border_ratio: float = 0.0,
     out = t.reshape((nt,) + lead + (dw, dh)).transpose(-1, -2)
     if step > 1:
         out = out.repeat_interleave(step, dim=-2)[..., :h, :]
-        out = out.repeat_interleave(step, dim=-1)[..., :w]
+        out = upsample_columns(out, step, w)
     out = out.contiguous()
     return out[0] if trial_axis is None else out.movedim(0, trial_axis)
 
@@ -150,7 +173,7 @@ def blur_dyn(channel, sigma: float, scale_x, scale_y):
     out = t.reshape((nb,) + lead + (dw, dh)).transpose(-1, -2)
     if step > 1:
         out = out.repeat_interleave(step, dim=-2)[..., :h, :]
-        out = out.repeat_interleave(step, dim=-1)[..., :w]
+        out = upsample_columns(out, step, w)
     return out.movedim(0, -3).contiguous()
 
 

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from guetzli_tpu_torch import consts
+from guetzli_tpu_torch import config, consts
 from guetzli_tpu_torch.ops import blockdiff as bd
 from guetzli_tpu_torch.ops.blur import blur, blur_dyn
 from guetzli_tpu_torch.ops.fp import div, sqrt
@@ -358,10 +358,25 @@ def _res_positions_dyn(padded, actual, step, margin):
     return pos, pos[None, :] + margin < actual[:, None]
 
 
+def _sel_matrix(targets, size):
+    """One-hot selection matrices [B, m, size] float32 from positions
+    targets [B, m]: row i of image b is 1.0 at column targets[b, i]."""
+    cols = torch.arange(size, device=targets.device)
+    return (targets[:, :, None] == cols).to(torch.float32)
+
+
 def _select_yx(img, ty, tx):
     """img [C, B, H, W] -> [C, B, m, n]: rows ty [B, m] and columns tx
-    [B, n] of each image, a gather (JAX _select_yx in its default take
-    form)."""
+    [B, n] of each image. A gather (JAX _select_yx in its default take
+    form), or under GUETZLI_TPU_SEL_MATMUL=1 JAX's one-hot form, two
+    matmuls with 0/1 matrices: each output is one 1.0 * value product
+    (TF32 off: device.resolve, and here), so both forms are exact."""
+    if config.sel_matmul():
+        torch.backends.cuda.matmul.allow_tf32 = False
+        sy = _sel_matrix(ty, img.shape[-2])               # [B, m, H]
+        sx = _sel_matrix(tx, img.shape[-1])               # [B, n, W]
+        rows = torch.matmul(sy, img)                      # [C, B, m, W]
+        return torch.matmul(rows, sx.transpose(-1, -2))   # [C, B, m, n]
     b = torch.arange(img.shape[1], device=img.device)[:, None, None]
     return img[:, b, ty[:, :, None], tx[:, None, :]]
 
@@ -446,8 +461,12 @@ def edge_detector_map_dyn(xyb0, xyb1, w, h, sc, step=3):
 
 
 def block_diff_map_dyn(xyb0, xyb1, w, h, step=3):
-    """-> channel-major (dc, ac) maps [3, B, RY, RX], by the window-major
-    form (JAX block_diff_map_dyn's CPU branch)."""
+    """-> channel-major (dc, ac) maps [3, B, RY, RX]: by the window-major
+    form (JAX block_diff_map_dyn's CPU branch), or under
+    GUETZLI_TPU_LANE_SAFE=1 the lane-major one (its accelerator branch:
+    the windows' blocks in the lanes of tiles_lanes.block_diff_lanes,
+    fixed-order sums, another rounding than the DFT matmuls)."""
+    from guetzli_tpu_torch.ops.layout import lane_safe
     hp, wp = xyb0.shape[-2:]
     dev = xyb0.device
     nb = w.shape[0]
@@ -457,6 +476,20 @@ def block_diff_map_dyn(xyb0, xyb1, w, h, step=3):
     py = torch.minimum(ry[None], h[:, None] - 8).clamp(min=0)
     ny, nx = len(ry), len(rx)
     e8 = torch.arange(8, device=dev)
+    ok = (ry_ok[:, :, None] & rx_ok[:, None, :])
+    if lane_safe():
+        from guetzli_tpu_torch.ops import tiles_lanes as tl
+        # Rows dy-major, columns dx-major: the window split is a reshape.
+        ty = (e8[None, :, None] + py[:, None, :]).reshape(nb, 8 * ny)
+        tx = (e8[None, :, None] + px[:, None, :]).reshape(nb, 8 * nx)
+        both = _select_yx(torch.cat([xyb0, xyb1]), ty, tx)
+        both = both.reshape(6, nb, 8, ny, 8, nx).permute(0, 2, 4, 1, 3, 5)
+        both = both.reshape(6, 8, 8, nb * ny * nx)         # [6, y, x, N]
+        dc, ac, _edge = tl.block_diff_lanes(both[0:3], both[3:6])
+        dc = torch.where(ok, dc.reshape(3, nb, ny, nx), 0.0)
+        ac = torch.where(ok, ac.reshape(3, nb, ny, nx), 0.0)
+        return (_pad_to_res_cm(dc, wp, hp, step),
+                _pad_to_res_cm(ac, wp, hp, step))
     ty = (py[:, :, None] + e8).reshape(nb, ny * 8)
     tx = (px[:, :, None] + e8).reshape(nb, nx * 8)
     both = _select_yx(torch.cat([xyb0, xyb1]), ty, tx)    # [6, B, 8ny, 8nx]
@@ -464,7 +497,6 @@ def block_diff_map_dyn(xyb0, xyb1, w, h, step=3):
     w0 = both[:, :, :, 0:3].reshape(nb, ny, nx, 3, 64)
     w1 = both[:, :, :, 3:6].reshape(nb, ny, nx, 3, 64)
     dc, ac, _edge = bd.block_diff(w0, w1, trials=True)     # [B, ny, nx, 3]
-    ok = (ry_ok[:, :, None] & rx_ok[:, None, :])
     dc = torch.where(ok, dc.movedim(-1, 0), 0.0)
     ac = torch.where(ok, ac.movedim(-1, 0), 0.0)
     return _pad_to_res_cm(dc, wp, hp, step), _pad_to_res_cm(ac, wp, hp, step)

@@ -18,7 +18,7 @@ pixels from coefficients at once.
 import numpy as np
 import torch
 
-from guetzli_tpu_torch import consts
+from guetzli_tpu_torch import config, consts
 
 _IDCT = consts.IDCT_MATRIX.astype(np.int32)   # [x, u]
 
@@ -86,13 +86,24 @@ def pixels_to_srgb(yuv_planes):
 def srgb_to_linear(rgb_int, trial_axis=None):
     """uint8-range ints -> linear float32 (gamma_correct.cc:23-33), in
     the closed form of the 256-entry table: the linear segment below 11
-    and the 2.4 power above (the JAX package's default form).
+    and the 2.4 power above (the JAX package's default form). Under
+    GUETZLI_TPU_EXACT_LUT=1 the table itself, read as float32 (JAX
+    reads it by an exact one-hot contraction).
 
     With ``trial_axis``, the power runs once per trial on a contiguous
     copy of that trial: the CPU's vectorized pow and its scalar tail
     round differently, and the tail's place depends on the tensor's
     size, so one call over every trial would round a trial's last
     pixels otherwise than a compare of that trial alone."""
+    if config.exact_lut():
+        from guetzli_tpu_torch.ops.blockdiff import table_on
+        return table_on(consts.SRGB_TO_LINEAR, rgb_int.device)[
+            rgb_int.long()]
+    return srgb_closed_form(rgb_int, trial_axis)
+
+
+def srgb_closed_form(rgb_int, trial_axis=None):
+    """srgb_to_linear's closed form, whatever the knob says."""
     vf = rgb_int.to(torch.float32)
     lo = vf * _SRGB_LO
     base = (vf * _SRGB_SCALE + _SRGB_OFF) * _SRGB_DIV
@@ -105,10 +116,12 @@ def srgb_to_linear(rgb_int, trial_axis=None):
 
 
 def srgb_table(device):
-    """srgb_to_linear of the 256 byte values, float32 [256] on `device`:
-    the block compare reads it as a table (so does the CUDA kernel)."""
-    return srgb_to_linear(torch.arange(256, dtype=torch.int32,
-                                       device=device))
+    """The closed form of the 256 byte values, float32 [256] on `device`:
+    the lane-major block compare reads it as a table (so do the CUDA
+    kernels). It stays in closed form under GUETZLI_TPU_EXACT_LUT, as the
+    JAX kernels' sRGB step does."""
+    return srgb_closed_form(torch.arange(256, dtype=torch.int32,
+                                         device=device))
 
 
 def coeffs_to_srgb(coeffs, bw, bh, w, h):

@@ -82,11 +82,11 @@ def opsin_dynamics_image_dyn(rgb, w, h, sc):
 
 
 def opsin_dynamics_blocks(rgb_blocks):
-    """Per-tile opsin for [N, 3, 8, 8] tiles: the blur stays inside the
+    """Per-tile opsin for [..., 3, 8, 8] tiles: the blur stays inside the
     tile (OpsinDynamicsImage at xsize=ysize=8, as SwitchBlock calls it,
-    butteraugli_comparator.cc:85-111). Returns [N, 3, 8, 8]."""
+    butteraugli_comparator.cc:85-111). Returns [..., 3, 8, 8]."""
     bm = torch.as_tensor(blur_matrix(8, consts.OPSIN_SIGMA, 0.0),
                          device=rgb_blocks.device)
     blurred = torch.matmul(torch.matmul(bm, rgb_blocks), bm.T)
-    x = rgb_blocks.transpose(0, 1)
-    return opsin_from_blurred(x, blurred.transpose(0, 1)).transpose(0, 1)
+    x = rgb_blocks.movedim(-3, 0)
+    return opsin_from_blurred(x, blurred.movedim(-3, 0)).movedim(0, -3)

@@ -11,10 +11,12 @@ The blocks-leading compare (port of guetzli_tpu/ops/tiles.py,
 tiles_to_linear_rgb and compare_blocks): candidate coefficients ->
 integer IDCT -> edge replication -> YCbCr->RGB bytes -> linear RGB ->
 8x8 opsin -> MaskHighIntensityChange confined to the tile -> block diff
--> masked error, batched over a leading block axis. It is the whole-tensor
+-> masked error, batched over a leading block axis, and its two 4:2:0
+twins (compare_blocks_420y, compare_blocks_420c). It is the whole-tensor
 form (matmul contractions, tensor means); the per-lane fixed-order form
 that the CUDA kernels equal is ops/tiles_lanes.py. --checkcuda holds
-kernels C and A against this one.
+kernels C and A against this one; the zeroing loops evaluate with it
+under GUETZLI_TPU_LANES=0 (search/zeroing.py).
 """
 
 import numpy as np
@@ -150,3 +152,57 @@ def compare_blocks(xyb0_tiles, cand_lin, scale):
     diff = ((dc + ac) * scale).sum(-1)
     diff_edge = (edge * scale).sum(-1)
     return fp.sqrt(ONE_MINUS_EDGE_W * diff + BLOCK_EDGE_W * diff_edge)
+
+
+def compare_blocks_420y(cand_y, chroma_bytes, xyb0_tiles, scales, ysel,
+                        xsel):
+    """The 4:2:0 Y-pass CompareBlock, blocks leading (JAX
+    ops/tiles.compare_blocks_420y): candidate Y coefficients [N, 64]
+    int32 against the frozen, edge-replicated Cb/Cr bytes chroma_bytes
+    [N, 2, 8, 8]; the rest as compare_blocks and tiles_to_linear_rgb.
+    Returns [N] float32."""
+    yv = img_ops.idct_blocks(cand_y).reshape(cand_y.shape[:-1] + (8, 8))
+    yv = edge_replicate(yv, ysel, xsel)
+    rgb = img_ops.ycbcr_to_rgb(yv, chroma_bytes[:, 0], chroma_bytes[:, 1])
+    lin = img_ops.srgb_to_linear(rgb.movedim(0, -3))
+    return compare_blocks(xyb0_tiles, lin, scales)
+
+
+def compare_blocks_420c(cand_u, cand_v, neigh_u, neigh_v, y_bytes16,
+                        xyb0_sub, scales_sub, ysel_sub, xsel_sub, valid_sub):
+    """The 4:2:0 chroma-pass CompareBlock over 16x16 macroblocks, blocks
+    leading (JAX ops/tiles.compare_blocks_420c; clguetzli.cl:3440-3639):
+    each candidate's chroma IDCT bytes go << 4 into the interior of its
+    frozen 10x10 x16 neighbourhood, which is fancy-upsampled to the
+    macroblock's 16x16 area and dithered; its four 8x8 sub-blocks are
+    compared against the original with the frozen Y bytes, and the
+    result is the max over the valid ones (from 0).
+
+    cand_u, cand_v: [N, 64] int32; neigh_u, neigh_v: [N, 10, 10] int32;
+    y_bytes16: [N, 16, 16] int32; xyb0_sub: [N, 2, 2, 3, 64] float32;
+    scales_sub: [N, 2, 2, 3]; ysel_sub, xsel_sub: [N, 2, 2, 8] int32;
+    valid_sub: [N, 2, 2] bool. Returns [N] float32."""
+    from guetzli_tpu_torch.ops import upsample as us
+
+    def chroma16(cand, neigh):
+        v = img_ops.idct_blocks(cand).reshape(cand.shape[:-1] + (8, 8))
+        filled = neigh.clone()
+        filled[..., 1:9, 1:9] = v << 4
+        return us.upsample_16x16_from_neighborhood(filled)   # x16 pixels
+
+    # ToPixels' dither: x = 16 * bx + ix, so the parity is ix's.
+    dith = 8 - (torch.arange(16, device=cand_u.device) & 1)
+    ub = (chroma16(cand_u, neigh_u) + dith) >> 4
+    vb = (chroma16(cand_v, neigh_v) + dith) >> 4
+
+    def split(p):                     # [N, 16, 16] -> [N, 2, 2, 8, 8]
+        return p.reshape(p.shape[0], 2, 8, 2, 8).permute(0, 1, 3, 2, 4)
+
+    def rep(p):
+        return edge_replicate(split(p), ysel_sub, xsel_sub)
+
+    rgb = img_ops.ycbcr_to_rgb(rep(y_bytes16), rep(ub), rep(vb))
+    lin = img_ops.srgb_to_linear(rgb.movedim(0, -3))
+    errs = compare_blocks(xyb0_sub, lin, scales_sub)       # [N, 2, 2]
+    errs = torch.where(valid_sub, errs, torch.zeros_like(errs))
+    return errs.amax(dim=(1, 2))

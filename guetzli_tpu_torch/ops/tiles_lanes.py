@@ -139,13 +139,16 @@ def _mean8_axis1(x):
     return _sum_seq(x, 1) * 0.125
 
 
-def block_diff_lanes(b0, b1):
+def block_diff_lanes(b0, b1, exact_lut=None):
     """ButteraugliBlockDiff (butteraugli.cc:602-684) on [3, 8, 8, N]
-    pairs -> (diff_dc, diff_ac, diff_edge), each [3, N]."""
+    pairs -> (diff_dc, diff_ac, diff_edge), each [3, N]. Its two table
+    reads (LF and HF DY) follow GUETZLI_TPU_EXACT_LUT unless `exact_lut`
+    says (blockdiff.color_diff_dy_hf)."""
     csf0 = float(_F32(consts.CSF8X8[0]))
     diff = b0 - b1
     avg = _mean8_axis1(_mean8_axis1(diff))         # [3, N]
-    dcx, dcy, dcz = bd.xyb_diff_low_freq_squared(avg[0], avg[1], avg[2])
+    dcx, dcy, dcz = bd.xyb_diff_low_freq_squared(avg[0], avg[1], avg[2],
+                                                 exact_lut)
     diff_dc = torch.stack([dcx, dcy, dcz]) * csf0
 
     edges = torch.stack([
@@ -154,7 +157,8 @@ def block_diff_lanes(b0, b1):
         _mean8_axis1(diff[:, :, 7, :]),            # column x = 7
         _mean8_axis1(diff[:, 7, :, :]),            # row y = 7
     ], dim=1)                                      # [3, 4, N]
-    ex, ey, ez = bd.xyb_diff_low_freq_squared(edges[0], edges[1], edges[2])
+    ex, ey, ez = bd.xyb_diff_low_freq_squared(edges[0], edges[1], edges[2],
+                                              exact_lut)
     diff_edge = torch.stack([_sum_seq(ex, 0), _sum_seq(ey, 0),
                              _sum_seq(ez, 0)]) * csf0
 
@@ -174,31 +178,33 @@ def block_diff_lanes(b0, b1):
     y1 = bd.remove_range_around_zero(ya + yh, rng)
     ymul2 = float(_F32(consts.BLOCKDIFF_AC_YMUL2))
     valy = float(_F32(consts.BLOCKDIFF_AC_YMUL)) * (
-        bd.color_diff_dy_hf(y0 * ymul2) - bd.color_diff_dy_hf(y1 * ymul2))
+        bd.color_diff_dy_hf(y0 * ymul2, exact_lut)
+        - bd.color_diff_dy_hf(y1 * ymul2, exact_lut))
     ac_y = wsum(valy * valy)
     return diff_dc, torch.stack([ac_x, ac_y, ac_z]), diff_edge
 
 
-def finish_lanes(rgb, xyb0_t, scales_t):
+def finish_lanes(rgb, xyb0_t, scales_t, exact_lut=None):
     """sRGB bytes [3, 8, 8, N] -> weighted block error [N]. The bytes are
-    linearized through image.srgb_table, as the CUDA kernel does."""
+    linearized through image.srgb_table (closed form whatever the knob
+    says), as the CUDA kernel does; exact_lut as block_diff_lanes."""
     lut = img_ops.srgb_table(rgb.device)
     xyb1 = opsin_blocks_lanes(lut[rgb.long()])
     m0, m1 = mhic_lanes(xyb0_t, xyb1)
-    dc, ac, edge = block_diff_lanes(m0, m1)
+    dc, ac, edge = block_diff_lanes(m0, m1, exact_lut)
     diff = _sum_seq((dc + ac) * scales_t, 0)
     diff_edge = _sum_seq(edge * scales_t, 0)
     return fp.sqrt(ONE_MINUS_EDGE_W * diff + BLOCK_EDGE_W * diff_edge)
 
 
-def compare_lanes(cand_t, xyb0_t, scales_t, ymax, xmax):
+def compare_lanes(cand_t, xyb0_t, scales_t, ymax, xmax, exact_lut=None):
     """CompareBlock over lane-major candidates: cand_t [3, 8, 8, N] int32
     dequantized coefficients; xyb0_t [3, 8, 8, N] float32 original opsin
     tiles; scales_t [3, N] float32 whole-image mask values; ymax, xmax [N]
     int32 edge clamps. Returns [N] float32 block errors."""
     v = edge_replicate_lanes(idct_lanes(cand_t), ymax, xmax)
     return finish_lanes(ycbcr_to_rgb_lanes(v[0], v[1], v[2]), xyb0_t,
-                        scales_t)
+                        scales_t, exact_lut)
 
 
 def compare_blocks_lanes444(cand, xyb0_t, scales_t, ymax, xmax):
@@ -220,14 +226,15 @@ def transpose_aux_444(xyb0_tiles, scales, ysel, xsel):
 
 # -- 4:2:0 Y pass ---------------------------------------------------------
 
-def compare_lanes_420y(cand_t, chroma_t, xyb0_t, scales_t, ymax, xmax):
+def compare_lanes_420y(cand_t, chroma_t, xyb0_t, scales_t, ymax, xmax,
+                       exact_lut=None):
     """The 4:2:0 Y-pass CompareBlock: only the Y plane of cand_t
     [3, 8, 8, N] goes through the IDCT and edge replication; it is
     converted with the block's frozen Cb/Cr bytes chroma_t [2, 8, 8, N]
     int32 (already edge-replicated). Returns [N] float32."""
     yv = edge_replicate_lanes(idct_lanes(cand_t[0]), ymax, xmax)
     return finish_lanes(ycbcr_to_rgb_lanes(yv, chroma_t[0], chroma_t[1]),
-                        xyb0_t, scales_t)
+                        xyb0_t, scales_t, exact_lut)
 
 
 def compare_blocks_lanes420y(cand_y, *aux):
@@ -285,7 +292,7 @@ def chroma16_bytes(cand_c, neigh):
 
 
 def _compare_420c_folded(cand_u, cand_v, neigh_u, neigh_v, y16s, xyb0_s,
-                         scales_s, ymax_s, xmax_s, valid):
+                         scales_s, ymax_s, xmax_s, valid, exact_lut=None):
     """The macroblock compare with the four sub-blocks folded into the
     lanes: every sub-block is one CompareBlock against the frozen Y bytes;
     the result is the max over the valid sub-blocks, 0 for invalid ones
@@ -297,7 +304,7 @@ def _compare_420c_folded(cand_u, cand_v, neigh_u, neigh_v, y16s, xyb0_s,
         return edge_replicate_lanes(p, ymax_s, xmax_s)
 
     errs = finish_lanes(ycbcr_to_rgb_lanes(rep(y16s), rep(ub), rep(vb)),
-                        xyb0_s, scales_s).reshape(2, 2, -1)
+                        xyb0_s, scales_s, exact_lut).reshape(2, 2, -1)
     errs = torch.where(valid, errs, torch.zeros_like(errs))
     return torch.maximum(torch.maximum(errs[0, 0], errs[1, 0]),
                          torch.maximum(errs[0, 1], errs[1, 1]))
@@ -314,7 +321,7 @@ def fold_aux_420c(nu, nv, y16, x0c, scc, ymaxc, xmaxc, validc):
 
 
 def compare_lanes_420c(cand_t, nu, nv, y16, x0c, scc, ymaxc, xmaxc,
-                       validc):
+                       validc, exact_lut=None):
     """The 4:2:0 chroma-pass CompareBlock over 16x16 macroblocks, in the
     CUDA kernels' layout: cand_t [3, 8, 8, N] (planes 1 and 2 are read);
     nu, nv [10, 10, N] int32 frozen x16 neighborhoods; y16 [16, 16, N]
@@ -323,7 +330,8 @@ def compare_lanes_420c(cand_t, nu, nv, y16, x0c, scc, ymaxc, xmaxc,
     [N] float32."""
     return _compare_420c_folded(
         cand_t[1], cand_t[2],
-        *fold_aux_420c(nu, nv, y16, x0c, scc, ymaxc, xmaxc, validc))
+        *fold_aux_420c(nu, nv, y16, x0c, scc, ymaxc, xmaxc, validc),
+        exact_lut=exact_lut)
 
 
 def compare_blocks_lanes420c(cand_u, cand_v, neigh_u_t, neigh_v_t, y16s,
@@ -364,8 +372,9 @@ def transpose_aux_420c(*aux):
     return fold_aux_420c(*kernel_aux_420c(*aux))
 
 
-# The plain block compare of each mode over lane-major operands, and the
-# transpose of each mode's frozen state into those operands.
+# The plain block compare of each mode over lane-major operands (each
+# takes exact_lut=, see block_diff_lanes), and the transpose of each
+# mode's frozen state into those operands.
 COMPARE = {"444": compare_lanes, "420y": compare_lanes_420y,
            "420c": compare_lanes_420c}
 LANE_AUX = {"444": transpose_aux_444, "420y": transpose_aux_420y,

@@ -54,7 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from guetzli_tpu_torch import consts
+from guetzli_tpu_torch import config, consts
 from guetzli_tpu_torch.ops import blockdiff as bd
 from guetzli_tpu_torch.ops import diffmap as dm
 from guetzli_tpu_torch.ops import image as img_ops
@@ -84,8 +84,9 @@ def _pow_run(run, start, total):
 
 def _srgb_to_linear(srgb, px, w):
     """img_ops.srgb_to_linear of the band's rows [3, n, W] of the whole
-    image's [3, H, W] bytes, bit for bit."""
-    if srgb.device.type != "cpu":
+    image's [3, H, W] bytes, bit for bit. Under GUETZLI_TPU_EXACT_LUT the
+    table read is per element, as on one device."""
+    if srgb.device.type != "cpu" or config.exact_lut():
         return img_ops.srgb_to_linear(srgb)
     vf = srgb.to(torch.float32)
     lo = vf * img_ops._SRGB_LO

@@ -23,7 +23,8 @@ sigma >= 3 to GSPMD, which the port does not have).
 import torch
 import torch.nn.functional as F
 
-from guetzli_tpu_torch.ops.blur import _border_weights, blur_step, gauss_taps
+from guetzli_tpu_torch.ops.blur import (_border_weights, blur_step,
+                                        gauss_taps, upsample_columns)
 
 
 class Span:
@@ -156,7 +157,7 @@ def sharded_blur(band, sigma, border_ratio, span):
     if step > 1:
         rows = torch.arange(span.lo, span.hi, device=dev) // step - k0
         out = out.index_select(-2, rows)
-        out = out.repeat_interleave(step, dim=-1)[..., :w]
+        out = upsample_columns(out, step, w)
     return out.contiguous()
 
 

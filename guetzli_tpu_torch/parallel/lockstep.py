@@ -354,14 +354,25 @@ def _corpus_masking(trip, comp_mask, target_muls, stop_early, threads=1,
     starts = np.cumsum([0] + rows[:-1])
     real_index = np.concatenate([s + p[5] for s, p in zip(starts, per)])
     p0 = trip[0][0]
+    kw = dict(mode=mode, real_index=real_index,
+              lookahead=p0.params.zeroing_greedy_lookahead,
+              new_model=p0.params.new_zeroing_model,
+              early_exit=p0.params.zeroing_early_exit)
     for attempt in range(runtime.ATTEMPTS):
         try:
-            cat_off, cat_idx, cat_err = zeroing.compute_zeroing_csr(
-                cat_blocks, cat_orig, limits, cat_aux, comp_mask,
-                p0.comparator.device, mode=mode, real_index=real_index,
-                lookahead=p0.params.zeroing_greedy_lookahead,
-                new_model=p0.params.new_zeroing_model,
-                early_exit=p0.params.zeroing_early_exit, fused=True)
+            if config.staged_zeroing():
+                cat_off, cat_idx, cat_err = zeroing.compute_zeroing_csr(
+                    cat_blocks, cat_orig, limits, cat_aux, comp_mask,
+                    p0.comparator.device, **kw)
+            else:
+                # The full-batch route (GUETZLI_TPU_STAGED_ZEROING=0),
+                # its CSR on the host at each row's limit.
+                out_idx, out_err, num = zeroing.compute_zeroing_order(
+                    cat_blocks, cat_orig, limits, cat_aux, comp_mask,
+                    p0.comparator.device, **kw)
+                cat_off, cat_idx, cat_err = zeroing.csr_from_zeroing(
+                    out_idx, out_err, num, limits[real_index])
+                del out_idx, out_err, num
             break
         except runtime.RECOVERABLE:
             if attempt == runtime.ATTEMPTS - 1:

@@ -25,6 +25,7 @@ weights.
 """
 
 import ctypes
+import gc
 import sys
 import time
 from contextlib import contextmanager
@@ -103,6 +104,19 @@ class ProcessStats:
                 " ".join("%2d" % q[c, y * 8 + x] for x in range(8))
                 for c in range(3))
             sys.stderr.write("  " + row + "\n")
+
+
+def return_memory(collect=True):
+    """Hand freed host memory back to the OS: a garbage collection (with
+    `collect`) and glibc's malloc_trim, which returns its arenas' free
+    pages (JAX processor.py's two RSS returns of a large encode). A libc
+    without malloc_trim is left alone."""
+    if collect:
+        gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
 
 
 def _backend_pipeline_lag(comparator):
@@ -438,22 +452,38 @@ class Processor:
     def masking_aux(self, img, comp_mask, grid):
         """The pass's zeroing mode and frozen per-block state (see
         zeroing.loop_inputs), on the bucket's grid for a padded
-        comparator. Starts block comparisons on the comparator."""
+        comparator. Starts block comparisons on the comparator.
+        GUETZLI_TPU_ZEROING_DEBUG=1 writes the whole-image mask's and the
+        block state's walls to stderr, as JAX's masking_aux does."""
         comp = self.comparator
+        t0 = time.time()
         comp.start_block_comparisons()
+        t0 = zeroing.debug(comp.device, t0, "zeroing-aux: whole-image mask")
         if img.is_444():
+            state = comp.block_state(1, 1)
+            zeroing.debug(comp.device, t0, "zeroing-aux: block state")
             if config.pallas() == 1:
                 # Opt-in: the staged loop with kernel C per step.
-                xyb0_tiles, scales, ysel, xsel = comp.block_state(1, 1)
+                xyb0_tiles, scales, ysel, xsel = state
                 sy, sx = tile_compare.selection_matrices(ysel, xsel)
                 return "444p", (xyb0_tiles, scales, sy, sx)
-            return "444", comp.block_state(1, 1)
+            return "444", state
         if comp_mask == 1:
             return "420y", ((comp.frozen_chroma_blocks(img),)
                             + comp.block_state(1, 1))
         return "420c", (comp.frozen_neighborhoods(img)
                         + (comp.frozen_y_16x16(img, grid.bw, grid.bh),)
                         + comp.children_state(grid.bw, grid.bh))
+
+    def csr_from_zeroing(self, out_idx, out_err, num, nb):
+        """CSR candidate arrays (processor.cc:694-716) of the full-batch
+        route's host rails [nb, K], at the comparator's float32 block
+        error limit (zeroing.csr_from_zeroing; JAX
+        processor.csr_from_zeroing)."""
+        assert len(num) == nb
+        return zeroing.csr_from_zeroing(
+            out_idx, out_err, num,
+            np.float32(self.comparator.block_error_limit()))
 
     def padded_masking_inputs(self, blocks, orig, grid):
         """The pass's blocks on the comparator's bucket grid (the grid
@@ -481,16 +511,33 @@ class Processor:
         with self.stats.timed("zeroing_aux"):
             mode, aux = self.masking_aux(img, comp_mask, grid)
         limit32 = np.float32(self.comparator.block_error_limit())
+        kw = dict(mode=mode, real_index=real_index, lookahead=lookahead,
+                  new_model=self.params.new_zeroing_model,
+                  early_exit=self.params.zeroing_early_exit,
+                  bands=self.comparator.bands, factor=grid.factor_y)
         with self.stats.timed("zeroing_loop"):
-            offsets, cand_idx, cand_err = zeroing.compute_zeroing_csr(
-                blocks, orig, limit32, aux, comp_mask,
-                self.comparator.device, mode=mode, real_index=real_index,
-                lookahead=lookahead, new_model=self.params.new_zeroing_model,
-                early_exit=self.params.zeroing_early_exit, fused=True,
-                bands=self.comparator.bands, factor=grid.factor_y)
+            if config.staged_zeroing():
+                offsets, cand_idx, cand_err = zeroing.compute_zeroing_csr(
+                    blocks, orig, limit32, aux, comp_mask,
+                    self.comparator.device, **kw)
+            else:
+                # GUETZLI_TPU_STAGED_ZEROING=0: the full-batch loop, and
+                # the CSR on the host.
+                out_idx, out_err, num = zeroing.compute_zeroing_order(
+                    blocks, orig, limit32, aux, comp_mask,
+                    self.comparator.device, **kw)
+                offsets, cand_idx, cand_err = self.csr_from_zeroing(
+                    out_idx, out_err, num, len(num))
+                del out_idx, out_err, num
         self.stats.inc("zeroing_passes")
         self.comparator.finish_block_comparisons()
+        nb = len(offsets) - 1
         del blocks, orig, aux
+        if nb * 192 >= 16 << 20:
+            # The pass's inputs and frozen state are dead once the CSR
+            # exists; at 8 MPix they are hundreds of MB that would sit in
+            # RSS through the back end (JAX processor.py:642-654).
+            return_memory()
         with self.stats.timed("back_end"):
             self.select_frequency_back_end(
                 jpg, img, comp_mask, target_mul, stop_early,
@@ -738,17 +785,26 @@ class Processor:
                             .dispatch_compare_with_weights(
                                 img, direction, target_mul, factor, factor)
                 with self.stats.timed("backend_serialize"):
-                    if not can_collapse:
+                    # GUETZLI_TPU_NO_INCR_SAVE=1: the whole save;
+                    # GUETZLI_TPU_NO_HISTO_REUSE=1: histograms rebuilt.
+                    # Both give the same bytes.
+                    if not can_collapse and config.incr_save():
                         img.update_jpeg_data(jpg_out, changed,
                                              flip_channels, bw)
                     else:
                         jpg_out = img.save_to_jpeg_data(jpg)
-                    if len(jpg_out.components) == ncomp_out0:
+                    if (len(jpg_out.components) == ncomp_out0
+                            and config.histo_reuse()):
                         encoded = self.output_jpeg(
                             jpg_out, dc_histograms0,
                             ac_histograms[:ncomp_out0])
                     else:
                         encoded = self.output_jpeg(jpg_out)
+                if nb >= 1 << 14 and self.stats.counters["iters"] % 8 == 0:
+                    # Multi-MPix flip loops churn tens of MB of numpy per
+                    # iteration, which glibc keeps in its arenas (JAX
+                    # processor.py:1024-1031).
+                    return_memory(collect=False)
                 self.stats.log(
                     "Iter %2d: (%d) %s Coeffs[%d/%d] Blocks[%d/%d/%d] "
                     "ValThres[%.4f] Out[%7d] EstErr[%.2f%%]",

@@ -21,28 +21,81 @@ whole-tensor loop whose per-step evaluation launches the mode's kernel A
 (``fused=False``) -- and the CSR compaction of the rails. Both give
 bit-identical rails on the card.
 
+The JAX package's routes, chosen by its variables at call time:
+GUETZLI_TPU_ZEROING_FUSED=0 runs every pass on the staged loop, and
+GUETZLI_TPU_PALLAS=0 the 4:4:4 pass (fused_wanted). The staged loop
+compacts the active lanes at every step, which is what JAX's stage
+ladder of fixed sizes (_staged_core) does for a compiled program, so the
+port keeps one staged loop and no ladder. GUETZLI_TPU_LANES=0 makes the
+staged and full-batch loops evaluate blocks-leading (ops/tiles.py; the
+fused route ignores it, as in JAX). GUETZLI_TPU_STAGED_ZEROING=0 is the
+full-batch route, compute_zeroing_order: no count sort, the rails pulled
+whole, the CSR built on the host (csr_from_zeroing).
+GUETZLI_TPU_ZEROING_DEBUG=1 writes the stage walls to stderr (debug).
+The JAX package's mode names map to the port's so: "444l", "444pl" ->
+"444" (the lane-major evaluation); "444" -> "444" with LANES=0;
+"420yl", "420cl" -> "420y", "420c"; "444p" -> "444p".
+
 Output mirrors the reference contract: per block, the order in which AC
 coefficients were zeroed with the (suffix-min) block error after each
 removal, cut off at the block error limit, as CSR arrays.
 """
 
+import sys
+import time
 from functools import partial
 
 import numpy as np
 import torch
 
-from guetzli_tpu_torch import consts
+from guetzli_tpu_torch import config, consts
 from guetzli_tpu_torch.kernels import tile_compare as kc
 from guetzli_tpu_torch.kernels import zeroing_loop as zl
 from guetzli_tpu_torch.kernels.tile_compare_lanes import tile_compare_lanes
+from guetzli_tpu_torch.ops import tiles as tile_ops
 from guetzli_tpu_torch.ops import tiles_lanes as tl
 
 K = 192  # 3 * 64 candidate slots per block
 
 
-def _lane_aux(mode):
+def debug(device, t0, fmt, *args):
+    """Under GUETZLI_TPU_ZEROING_DEBUG=1: wait for `device`, write one
+    stage line "fmt % args" with the wall since `t0` to stderr, and
+    return the time (the next stage's t0); else return t0 untouched."""
+    if not config.zeroing_debug():
+        return t0
+    if getattr(device, "type", device) == "cuda":
+        torch.cuda.synchronize(device)
+    now = time.time()
+    sys.stderr.write((fmt % args) + " %.2fs\n" % (now - t0))
+    return now
+
+
+def fused_wanted(mode):
+    """Whether the mode's greedy kernel (B, B', B'') runs the pass (the
+    JAX package's _fused_wanted on an accelerator): never for "444p"
+    (kernel C per step of the staged loop) nor under
+    GUETZLI_TPU_ZEROING_FUSED=0; under GUETZLI_TPU_PALLAS=0 not for the
+    4:4:4 pass (JAX's auto keeps the 4:2:0 passes fused whatever PALLAS
+    says); else fused, on both devices (on the CPU the fused loop is the
+    kernels' plain twin, with the same rails as the staged loop)."""
+    f = config.zeroing_fused()
+    if mode == "444p" or f is False:
+        return False
+    return not (f is None and mode == "444" and config.pallas() == 0)
+
+
+def _moved_aux(*aux):
+    """Frozen state with the block axis moved last, where the loop
+    gathers its lanes."""
+    return tuple(a.movedim(0, -1).contiguous() for a in aux)
+
+
+def _lane_aux(mode, lanes=True):
     """The transpose of a mode's frozen state into the loop's operands."""
-    return kc.lanes_aux if mode == "444p" else tl.LANE_AUX[mode]
+    if mode == "444p" or not lanes:
+        return _moved_aux
+    return tl.LANE_AUX[mode]
 
 
 def _compare_kernel(mode):
@@ -50,6 +103,23 @@ def _compare_kernel(mode):
     "444p", else A, A' or A''."""
     return (kc.compare_lanes if mode == "444p"
             else partial(tile_compare_lanes, mode=mode))
+
+
+def _compare_blocks_leading(mode):
+    """The mode's blocks-leading compare (ops/tiles.py; the JAX package's
+    modes "444", "420y", "420c" of GUETZLI_TPU_LANES=0) on the loop's
+    operands: candidates [3, 8, 8, M] and _moved_aux state."""
+    def evaluate(cand_t, *aux_l):
+        aux = [a.movedim(-1, 0) for a in aux_l]
+        cand = cand_t.permute(3, 0, 1, 2).reshape(-1, 3, 64)
+        if mode == "444":
+            xyb0_tiles, scales, ysel, xsel = aux
+            lin = tile_ops.tiles_to_linear_rgb(cand, xsel, ysel)
+            return tile_ops.compare_blocks(xyb0_tiles, lin, scales)
+        if mode == "420y":
+            return tile_ops.compare_blocks_420y(cand[:, 0], *aux)
+        return tile_ops.compare_blocks_420c(cand[:, 1], cand[:, 2], *aux)
+    return evaluate
 
 
 def candidate_scores(blocks, orig_blocks, comp_mask, new_model=True):
@@ -96,7 +166,7 @@ def _argsort_rows_stable(scores):
 
 
 def loop_inputs(blocks, orig_blocks, limit, aux, comp_mask, device,
-                mode="444", new_model=True):
+                mode="444", new_model=True, sort=True, lanes=True):
     """The host preamble: the greedy loop's lane-major operands.
 
     blocks, orig_blocks: [NB, 3, 64] int32 numpy (current and original
@@ -112,14 +182,18 @@ def loop_inputs(blocks, orig_blocks, limit, aux, comp_mask, device,
               (kernels/tile_compare.selection_matrices).
     Returns (args, perm, inv_perm, limit_np): args = (coeffs_t, order_t,
     nrem, lim, aux_lanes) are the operands of kernels/zeroing_loop
-    .zeroing_loop in the count-sorted block order `perm`."""
+    .zeroing_loop in the count-sorted block order `perm` (`sort` False:
+    the blocks' own order, the full-batch loop's). With `lanes` False the
+    state keeps its blocks-leading layout, its block axis moved last.
+    """
     nb = blocks.shape[0]
     limit = np.asarray(limit, dtype=np.float32)
     chan_ok = np.array([(comp_mask >> c) & 1 for c in range(3)], bool)
     valid = (np.asarray(blocks) != 0) & chan_ok[None, :, None]
     valid[:, :, 0] = False
     n_cand_host = valid.reshape(nb, K).sum(axis=1).astype(np.int64)
-    perm = np.argsort(-n_cand_host, kind="stable")
+    perm = (np.argsort(-n_cand_host, kind="stable") if sort
+            else np.arange(nb))
     inv_perm = np.argsort(perm)
 
     blocks_perm = np.asarray(blocks)[perm]
@@ -135,7 +209,7 @@ def loop_inputs(blocks, orig_blocks, limit, aux, comp_mask, device,
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
     perm_d = up(perm)
-    aux_lanes = _lane_aux(mode)(
+    aux_lanes = _lane_aux(mode, lanes)(
         *[torch.as_tensor(a, device=device)[perm_d] for a in aux])
     args = (up(blocks_perm.reshape(nb, K).T.astype(np.int32)), up(order0.T),
             up(n_cand), up(lim_p), aux_lanes)
@@ -144,22 +218,40 @@ def loop_inputs(blocks, orig_blocks, limit, aux, comp_mask, device,
 
 def greedy_rails(blocks, orig_blocks, limit, aux, comp_mask, device,
                  mode="444", lookahead=3, new_model=True, early_exit=False,
-                 fused=True):
+                 fused=None, sort=True):
     """Run the greedy loop of every block (arguments as loop_inputs).
-    Mode "444p" runs the staged loop whatever `fused` says.
-    Returns (bank_idx, bank_err, perm, inv_perm, limit_np): [NB, K] rails
-    on `device` in the count-sorted block order `perm`."""
+
+    `fused` None: fused_wanted(mode). Fused: the mode's kernel B, B' or
+    B''. Else the staged loop (zeroing_loop_plain), which compacts the
+    active lanes at every step and evaluates them with the mode's compare
+    kernel A, A', A'' or C, or under GUETZLI_TPU_LANES=0 with the
+    blocks-leading compare of ops/tiles.py (JAX's modes "444", "420y",
+    "420c"). Returns (bank_idx, bank_err, perm, inv_perm, limit_np):
+    [NB, K] rails on `device` in the block order `perm`."""
+    t0 = time.time()
+    if fused is None:
+        fused = fused_wanted(mode)
+    lanes = fused or mode == "444p" or config.lanes()
     args, perm, inv_perm, limit = loop_inputs(
-        blocks, orig_blocks, limit, aux, comp_mask, device, mode, new_model)
-    if fused and mode != "444p":
+        blocks, orig_blocks, limit, aux, comp_mask, device, mode, new_model,
+        sort, lanes)
+    t0 = debug(device, t0, "zeroing: nb=%d upload+scores", len(perm))
+    if fused:
         out_idx, out_err = zl.zeroing_loop(*args, mode=mode,
                                            lookahead=lookahead,
                                            early_exit=early_exit)
+        debug(device, t0, "zeroing-fused: kernel %s (nb %d)",
+              zl.ENTRY[mode], len(perm))
     else:
+        evaluate = (_compare_kernel(mode) if lanes
+                    else _compare_blocks_leading(mode))
         out_idx, out_err = zl.zeroing_loop_plain(
             *args, mode=mode, lookahead=lookahead, early_exit=early_exit,
-            evaluate=_compare_kernel(mode))
-    check_final_errors(args[0], out_idx, out_err, args[4], mode)
+            evaluate=evaluate)
+        debug(device, t0, "zeroing: staged loop (%s, %s) nb=%d",
+              mode, "lanes" if lanes else "blocks leading", len(perm))
+    if lanes:
+        check_final_errors(args[0], out_idx, out_err, args[4], mode)
     return out_idx.T, out_err.T, perm, inv_perm, limit
 
 
@@ -209,11 +301,14 @@ def csr_from_rails(bank_idx, bank_err, perm, inv_perm, limit_np,
         lim = torch.as_tensor(limit_np[perm], device=dev)[lookup][:, None]
     num = (rev <= lim).sum(1)
     z = torch.minimum((rev <= 0.0).sum(1), num)
+    t0 = time.time()
     counts = (num - z).cpu().numpy().astype(np.int64)
+    t0 = debug(dev, t0, "zeroing-csr: counts pull")
     nbr = len(counts)
     offsets = np.zeros(nbr + 1, dtype=np.int64)
     np.cumsum(counts, out=offsets[1:])
     m = int(offsets[-1])
+    t0 = debug(dev, t0, "zeroing-csr: host build m=%d", m)
     if m == 0:
         return offsets, np.empty(0, np.int32), np.empty(0, np.float32)
     # Selected slots of row r are the range [z[r], num[r]).
@@ -225,15 +320,17 @@ def csr_from_rails(bank_idx, bank_err, perm, inv_perm, limit_np,
     cols = z[rows] + within
     cand_idx = bank_idx[lookup[rows], cols].cpu().numpy().astype(np.int32)
     cand_err = rev[rows, cols].cpu().numpy().astype(np.float32)
+    debug(dev, t0, "zeroing-csr: gather pull")
     return offsets, cand_idx, cand_err
 
 
 def compute_zeroing_csr(blocks, orig_blocks, limit, aux, comp_mask, device,
                         mode="444", real_index=None, lookahead=3,
-                        new_model=True, early_exit=False, fused=True,
+                        new_model=True, early_exit=False, fused=None,
                         bands=None, factor=1):
-    """Greedy zeroing of every block + CSR compaction (the port of
-    compute_zeroing_csr_staged). See greedy_rails and csr_from_rails.
+    """Greedy zeroing of every block + CSR compaction on the rails'
+    device (the port of compute_zeroing_csr_staged). See greedy_rails
+    (`fused` None: fused_wanted) and csr_from_rails.
     Under a mesh (`bands`, parallel/mesh.RowBands; exact geometry) the
     greedy loop runs on this rank's rows of the pass's grid alone (its
     blocks are 8 * `factor` pixels high: 1 for the 4:4:4 and 4:2:0 Y
@@ -241,10 +338,12 @@ def compute_zeroing_csr(blocks, orig_blocks, limit, aux, comp_mask, device,
     comparator's state of those rows, and the rails of every rank are
     gathered before the compaction, so every rank builds the same CSR."""
     if bands is not None:
-        return _zeroing_csr_banded(blocks, orig_blocks, limit, aux,
-                                   comp_mask, device, mode, lookahead,
-                                   new_model, early_exit, fused,
-                                   bands.span(8 * factor))
+        idx, err, limit = _banded_rails(
+            blocks, orig_blocks, limit, aux, comp_mask, device, mode,
+            lookahead, new_model, early_exit, fused, True,
+            bands.span(8 * factor))
+        ident = np.arange(blocks.shape[0], dtype=np.int64)
+        return csr_from_rails(idx, err, ident, ident, limit)
     if blocks.shape[0] == 0:
         n = 0 if real_index is None else len(real_index)
         return (np.zeros(n + 1, np.int64), np.empty(0, np.int32),
@@ -254,13 +353,65 @@ def compute_zeroing_csr(blocks, orig_blocks, limit, aux, comp_mask, device,
     return csr_from_rails(*rails, real_index=real_index)
 
 
-def _zeroing_csr_banded(blocks, orig_blocks, limit, aux, comp_mask, device,
-                        mode, lookahead, new_model, early_exit, fused,
-                        bs):
-    """compute_zeroing_csr of this rank's block rows (bs, a Span of the
-    pass's grid), the rails all-gathered in block order. The blocks are
-    independent, so each block's rails are those of the single-device
-    loop."""
+def compute_zeroing_order(blocks, orig_blocks, limit, aux, comp_mask,
+                          device, mode="444", real_index=None, lookahead=3,
+                          new_model=True, early_exit=False, bands=None,
+                          factor=1):
+    """The full-batch route (GUETZLI_TPU_STAGED_ZEROING=0; JAX
+    compute_zeroing_order_with): the staged loop over every block in its
+    own order, no count sort, its rails pulled whole to the host, where
+    the suffix-min and the cut at the limit run (processor.cc:467-479).
+    Arguments as compute_zeroing_csr. Returns numpy (out_idx [NBR, K]
+    int32, out_err [NBR, K] float32 suffix-minimized, num [NBR] int32)
+    of the rows real_index (all when None); csr_from_zeroing compacts
+    them."""
+    limit = np.asarray(limit, dtype=np.float32)
+    if bands is not None:
+        idx, err, limit = _banded_rails(
+            blocks, orig_blocks, limit, aux, comp_mask, device, mode,
+            lookahead, new_model, early_exit, False, False,
+            bands.span(8 * factor))
+    elif blocks.shape[0] == 0:
+        idx = torch.zeros((0, K), dtype=torch.int32)
+        err = torch.zeros((0, K), dtype=torch.float32)
+    else:
+        idx, err, _perm, _inv, limit = greedy_rails(
+            blocks, orig_blocks, limit, aux, comp_mask, device, mode,
+            lookahead, new_model, early_exit, fused=False, sort=False)
+    t0 = time.time()
+    idx, err = idx.cpu().numpy(), err.cpu().numpy()
+    debug(device, t0, "zeroing: rails pull [%d, %d]", *err.shape)
+    if real_index is not None:
+        idx, err = idx[real_index], err[real_index]
+        if limit.ndim:
+            limit = limit[real_index]
+    rev = np.minimum.accumulate(err[:, ::-1], axis=1)[:, ::-1]
+    lim = limit[:, None] if limit.ndim else limit
+    num = (rev <= lim).sum(axis=1).astype(np.int32)
+    return idx, np.ascontiguousarray(rev), num
+
+
+def csr_from_zeroing(out_idx, out_err, num, limit):
+    """CSR candidate arrays (processor.cc:694-716) of host rails (JAX
+    Processor.csr_from_zeroing): per row the slots below `num` with an
+    error in (0, limit], the float32 limit a scalar or one per row. The
+    same arrays as csr_from_rails of the same rails."""
+    limit = np.asarray(limit, dtype=np.float32)
+    lim = limit[:, None] if limit.ndim else limit
+    slot = np.arange(out_err.shape[1])[None, :]
+    sel = (slot < num[:, None]) & (out_err > 0) & (out_err <= lim)
+    offsets = np.zeros(len(num) + 1, dtype=np.int64)
+    np.cumsum(sel.sum(axis=1), out=offsets[1:])
+    return (offsets, out_idx[sel].astype(np.int32),
+            out_err[sel].astype(np.float32))
+
+
+def _banded_rails(blocks, orig_blocks, limit, aux, comp_mask, device, mode,
+                  lookahead, new_model, early_exit, fused, sort, bs):
+    """The greedy loop of this rank's block rows (bs, a Span of the
+    pass's grid), the rails all-gathered in block order: (idx, err [NB,
+    K] on `device`, limit). The blocks are independent, so each block's
+    rails are those of the single-device loop."""
     bw = blocks.shape[0] // bs.size
     sl = slice(bs.lo * bw, bs.hi * bw)
     limit = np.asarray(limit, dtype=np.float32)
@@ -268,7 +419,7 @@ def _zeroing_csr_banded(blocks, orig_blocks, limit, aux, comp_mask, device,
         idx, err, _perm, inv_perm, _lim = greedy_rails(
             blocks[sl], orig_blocks[sl], limit[sl] if limit.ndim else limit,
             aux, comp_mask, device, mode, lookahead, new_model, early_exit,
-            fused)
+            fused, sort)
         back = torch.as_tensor(inv_perm, dtype=torch.int64, device=device)
         idx, err = idx[back], err[back]
     else:
@@ -277,5 +428,4 @@ def _zeroing_csr_banded(blocks, orig_blocks, limit, aux, comp_mask, device,
     counts = [c * bw for c in bs.counts()]
     idx = bs.group.all_gather_rows(idx.contiguous(), counts)
     err = bs.group.all_gather_rows(err.contiguous(), counts)
-    ident = np.arange(blocks.shape[0], dtype=np.int64)
-    return csr_from_rails(idx, err, ident, ident, limit)
+    return idx, err, limit

@@ -275,7 +275,7 @@ def test_host_built_kernels_equal_plain(host_libs, states, mode):
     out = torch.empty(n)
     rc = _entry(host_libs, ka.ENTRY[mode])(
         ct.data_ptr(), *[a.data_ptr() for a in lanes], tab.data_ptr(),
-        out.data_ptr(), n, None)
+        out.data_ptr(), n, 0, None)
     assert rc == 0
     assert torch.equal(out, tl.COMPARE[mode](ct, *lanes))
     # The greedy loop (B, B', B''), with early exit in mode 444.
@@ -284,7 +284,7 @@ def test_host_built_kernels_equal_plain(host_libs, states, mode):
     rc = _entry(host_libs, zl.ENTRY[mode])(
         coeffs_t.data_ptr(), order_t.data_ptr(), nrem.data_ptr(),
         lim.data_ptr(), *[a.data_ptr() for a in lanes], tab.data_ptr(),
-        out_idx.data_ptr(), out_err.data_ptr(), n, 3, int(early), None)
+        out_idx.data_ptr(), out_err.data_ptr(), n, 3, int(early), 0, None)
     assert rc == 0
     want_idx, want_err = zl.zeroing_loop_plain(coeffs_t, order_t, nrem, lim,
                                                lanes, mode, early_exit=early)
@@ -398,7 +398,7 @@ def test_host_built_team_kernels_equal_plain(host_libs, states, mode,
         coeffs_t.data_ptr(), order_t.data_ptr(), nrem.data_ptr(),
         lim.data_ptr(), *[a.data_ptr() for a in lanes], tab.data_ptr(),
         out_idx.data_ptr(), out_err.data_ptr(), n, lookahead, int(early),
-        None)
+        0, None)
     assert rc == 0
     want_idx, want_err = zl.zeroing_loop_plain(
         coeffs_t, order_t, nrem, lim, lanes, mode, lookahead=lookahead,
@@ -438,7 +438,7 @@ def test_host_built_team_compare(host_libs, states, mode):
         out = torch.empty(m)
         rc = compare(cand.contiguous().data_ptr(),
                      *[a.data_ptr() for a in lanes_m], tab.data_ptr(),
-                     out.data_ptr(), m, None)
+                     out.data_ptr(), m, 0, None)
         assert rc == 0
         return out
 
@@ -458,7 +458,7 @@ def test_host_built_team_compare(host_libs, states, mode):
     rc = _entry(host_libs, zl.ENTRY[mode])(
         coeffs_t.data_ptr(), order_t.data_ptr(), nrem.data_ptr(),
         lim.data_ptr(), *[a.data_ptr() for a in lanes], tab.data_ptr(),
-        out_idx.data_ptr(), out_err.data_ptr(), n, 3, int(early), None)
+        out_idx.data_ptr(), out_err.data_ptr(), n, 3, int(early), 0, None)
     assert rc == 0
     steps = torch.isfinite(out_err).sum(0)
     final = coeffs_t.clone()
@@ -500,3 +500,45 @@ def test_host_team_geometry(host_libs):
         assert _entry(host_libs, entry)(
             mode, ctypes.byref(bad), ctypes.byref(bad),
             ctypes.byref(bad)) != 0
+
+
+@pytest.mark.parametrize("mode", ["444", "420y", "420c"])
+def test_host_built_exact_lut_variants(host_libs, states, mode):
+    """The EXACT_LUT variants of A, A', A'' and B, B', B'' (the kernels'
+    table forms, exact=1: the LF and HF DY reads by table) against the
+    plain versions with exact_lut=True, bit for bit: the compare on every
+    block and its first-step candidates, the greedy loop's two rails."""
+    blocks, aux, mask = states[mode]
+    args, _perm, _inv, _lim = zeroing.loop_inputs(
+        blocks, blocks, np.float32(_TEAM_LIMIT[mode]), aux, mask, CPU, mode)
+    coeffs_t, order_t, nrem, lim, lanes = args
+    n = coeffs_t.shape[1]
+    tab = tables.build(CPU)
+    rows = torch.arange(192)[:, None]
+    firsts = [torch.where(rows == order_t[l][None, :], 0, coeffs_t)
+              for l in range(3)]
+    cand = torch.cat([coeffs_t] + firsts, 1).reshape(3, 8, 8, 4 * n) \
+        .contiguous()
+    lanes4 = [torch.cat([a] * 4, -1).contiguous() for a in lanes]
+    out = torch.empty(4 * n)
+    rc = _entry(host_libs, ka.ENTRY[mode])(
+        cand.data_ptr(), *[a.data_ptr() for a in lanes4], tab.data_ptr(),
+        out.data_ptr(), 4 * n, 1, None)
+    assert rc == 0
+    assert torch.equal(out, tl.COMPARE[mode](cand, *lanes4, exact_lut=True))
+    # The tables are another function than the closed forms.
+    assert not torch.equal(out, tl.COMPARE[mode](cand, *lanes4,
+                                                 exact_lut=False))
+    out_idx = torch.empty((192, n), dtype=torch.int32)
+    out_err = torch.empty((192, n))
+    rc = _entry(host_libs, zl.ENTRY[mode])(
+        coeffs_t.data_ptr(), order_t.data_ptr(), nrem.data_ptr(),
+        lim.data_ptr(), *[a.data_ptr() for a in lanes], tab.data_ptr(),
+        out_idx.data_ptr(), out_err.data_ptr(), n, 3, 0, 1, None)
+    assert rc == 0
+    want_idx, want_err = zl.zeroing_loop(coeffs_t, order_t, nrem, lim,
+                                         lanes, mode, exact_lut=True)
+    assert torch.equal(out_idx, want_idx)
+    assert torch.equal(out_err, want_err)
+    assert int(torch.isfinite(out_err).sum()) > n
+
