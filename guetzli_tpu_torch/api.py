@@ -48,7 +48,8 @@ def _encode(data, pixels, quality, params, stats, dev):
         if out is None:
             raise ValueError("JPEG input could not be processed")
         return out
-    rgb, w, h = read_png(data) if pixels is None else pixels
+    with stats.timed("image_setup"):
+        rgb, w, h = read_png(data) if pixels is None else pixels
     return process_rgb(params, rgb, w, h, stats, dev)
 
 

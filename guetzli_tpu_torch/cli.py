@@ -10,7 +10,9 @@ stops once its error reaches the block error limit (processor.cc:458-465).
 --checkcuda (alias --checkcl) first runs the kernel verification of
 checkcl.py on the input image (the clguetzli_test.cpp analog) and prints
 its report to stderr; --profile DIR writes a torch.profiler Chrome trace
-of the run to DIR/trace.json. --mesh N encodes one image over N
+of the run to DIR/trace.json, the search's phases and compare spans in
+it as "phase.<name>" ranges (spans.py) beside the card's activity.
+--mesh N encodes one image over N
 ranks, processes that this command starts itself (run_ranks): each holds
 a band of the image's rows, on cuda:{rank % device_count} or, with
 --cpu, on the CPU, and the output's bytes are those of one device
@@ -39,8 +41,8 @@ Flags:
   --checkcuda, --checkcl
                - First verify the butteraugli stages and the block compare
                  kernels on the input image (report on standard error).
-  --profile D  - Write a torch.profiler Chrome trace of the run to
-                 D/trace.json.
+  --profile D  - Write a torch.profiler Chrome trace of the run, with
+                 the search's phases, to D/trace.json.
   --mesh N     - Encode over N ranks, each on a band of the image's rows
                  (the same bytes as one device).
 """

@@ -31,15 +31,30 @@ It also offers the JAX package's accelerator search route:
 PyTorch runs eagerly and CUDA work is queued asynchronously, so the
 dispatch_* / fetch_* pairs keep the JAX package's structure: a dispatch
 queues the device work, its fetch reads the results on the host.
+
+Two spans (spans.py) time them on the host, into the comparator's
+`timings` dict (None: the profiler's trace only):
+
+  * compare_dispatch: launching a whole-image compare's device work,
+    where it is launched: dispatch_compare, dispatch_quant_batch, and
+    the run of dispatch_compare_with_weights and of the sparse
+    dispatches (the resident state's scatter and compare), at once or,
+    for a DeferredCompare, at its resolve. Nested sites count once;
+  * compare_wait: blocked in the device-to-host copy of a compare's
+    results (fetch_compare_plain, fetch_quant_scores, fetch_compare_pure,
+    fetch_compare_many).
 """
 
+import functools
 import math
+import threading
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from guetzli_tpu_torch import config, consts, runtime
+from guetzli_tpu_torch import config, consts, runtime, spans
 from guetzli_tpu_torch.ops import diffmap as dm
 from guetzli_tpu_torch.ops import image as img_ops
 from guetzli_tpu_torch.ops import tiles as tile_ops
@@ -52,6 +67,52 @@ from guetzli_tpu_torch.parallel.mesh import (RowBands, mesh_from_env,
                                              put_blocks)
 
 _F32 = np.float32
+
+# Per thread: `dispatching` inside a compare_dispatch span, so that a
+# nested dispatch site adds no second span; `prefetch` on a prefetch
+# thread, whose spans reach the profiler's trace only.
+_span_state = threading.local()
+
+
+def prefetch_thread():
+    """Mark the calling thread as a prefetch thread (a thread pool's
+    initializer): its compares overlap the main thread's work, which
+    times the wait it sees itself."""
+    _span_state.prefetch = True
+
+
+def _charged(timings):
+    return None if getattr(_span_state, "prefetch", False) else timings
+
+
+@contextmanager
+def dispatch_span(timings):
+    """The compare_dispatch span on `timings`, or nothing when this thread
+    is inside one already."""
+    if getattr(_span_state, "dispatching", False):
+        yield
+        return
+    _span_state.dispatching = True
+    try:
+        with spans.timed(_charged(timings), "compare_dispatch"):
+            yield
+    finally:
+        _span_state.dispatching = False
+
+
+def wait_span(timings):
+    """The compare_wait span on `timings`."""
+    return spans.timed(_charged(timings), "compare_wait")
+
+
+def _dispatches(method):
+    """A Comparator method that launches a compare's device work, inside
+    a compare_dispatch span on the comparator's timings."""
+    @functools.wraps(method)
+    def dispatch(self, *args):
+        with dispatch_span(self.timings):
+            return method(self, *args)
+    return dispatch
 
 
 def score_jpeg(distance, size, target):
@@ -477,6 +538,10 @@ class Comparator:
         self.batcher = None
         # Whole-image compares dispatched (a wave counts its trials).
         self.compares = 0
+        # Where the compare spans add their seconds (module docstring);
+        # the serial search sets its ProcessStats.timings, the corpus
+        # driver its phase walls.
+        self.timings = None
         self.xyb0 = self._original_opsin() if xyb0 is None else xyb0
         self.distance = 0.0
         self.distmap = None
@@ -551,6 +616,7 @@ class Comparator:
 
     # -- full-image comparison ------------------------------------------
 
+    @_dispatches
     def dispatch_compare(self, img):
         """Queue a whole-image compare of a CoeffImage (4:4:4 or 4:2:0);
         fetch_compare_plain completes it. With a batcher the compare is
@@ -607,7 +673,8 @@ class Comparator:
 
     def fetch_compare_plain(self, handle):
         handle = _resolved(handle)
-        self.distance = float(handle[0])
+        with wait_span(self.timings):
+            self.distance = float(handle[0])
         self.distmap = handle[1]
         return self.distance
 
@@ -670,6 +737,7 @@ class Comparator:
         sizes = tuple(s for s in self._QUANT_BATCH_SIZES if s <= cap)
         return sizes or (min(cap, self._QUANT_BATCH_SIZES[0]),)
 
+    @_dispatches
     def dispatch_quant_batch(self, base, qs):
         """Queue len(qs) quant-matrix trials as one batched compare; the
         handle's fetch is fetch_quant_scores. The wave runs exactly its
@@ -691,7 +759,8 @@ class Comparator:
     def fetch_quant_scores(self, handle):
         """[B] float64 scores (one device-to-host copy)."""
         scores, b = handle
-        return scores.cpu().numpy()[:b].astype(np.float64)
+        with wait_span(self.timings):
+            return scores.cpu().numpy()[:b].astype(np.float64)
 
     def set_quant_result(self, handle, row, score):
         """Adopt trial `row` of a fetched wave as the current distance.
@@ -957,7 +1026,8 @@ class Comparator:
             self, "444" if img.is_444() else "420",
             (sizex, sizey, direction > 0), self._padded_planes(img),
             self.target_distance * target_mul, (gbw, gbh))
-        return DeferredCompare(lambda: self.batcher.result(idx), args)
+        return DeferredCompare(self._timed_run(
+            lambda: self.batcher.result(idx)), args)
 
     def dispatch_compare_with_weights(self, img, direction, target_mul,
                                       factor_x, factor_y):
@@ -973,10 +1043,19 @@ class Comparator:
 
     def _deferred(self, run, args):
         """run() -> (score, dmap, w4) now, or at the handle's read when a
-        batcher is set (the class docstring)."""
+        batcher is set (the class docstring); either way inside a
+        compare_dispatch span."""
+        run = self._timed_run(run)
         if self.batcher is not None:
             return DeferredCompare(run, args)
         return run() + (args,)
+
+    def _timed_run(self, run):
+        """run, its call inside a compare_dispatch span."""
+        def timed():
+            with dispatch_span(self.timings):
+                return run()
+        return timed
 
     def replay(self, handle):
         """Queue a handle's compare again. The image is the one the handle
@@ -1005,9 +1084,13 @@ class Comparator:
         prefetch thread may run it (the pipelined back end applies the
         distance and distmap on the main thread at its join): (distance,
         [4, NB] weights, the device distmap), in one device-to-host
-        copy."""
-        score, dmap, w4, _args = _resolved(handle)
-        flat = torch.cat([score.reshape(1), w4.reshape(-1)]).cpu().numpy()
+        copy. On a prefetch thread (prefetch_thread) its spans add
+        nothing to self.timings."""
+        with dispatch_span(self.timings):
+            score, dmap, w4, _args = _resolved(handle)
+            flat = torch.cat([score.reshape(1), w4.reshape(-1)])
+        with wait_span(self.timings):
+            flat = flat.cpu().numpy()
         return float(flat[0]), flat[1:].reshape(w4.shape), dmap
 
     # -- device-resident back-end coefficient state ----------------------
@@ -1157,12 +1240,18 @@ def fetch_compare_many(comps, handles):
     flattened w4 concatenated. Batched handles resolve first, which
     flushes their batcher's groups without waiting for the device. Leaves
     each comparator as fetch_compare would (distance, distmap) and
-    returns the same [(distance, w4)]."""
+    returns the same [(distance, w4)]. Its compare spans (the handles'
+    runs, the concatenation and the copy) go to the first comparator's
+    timings: the corpus driver gives every comparator the same dict."""
     if not handles:
         return []
-    handles = [_resolved(h) for h in handles]
-    flat = torch.cat([torch.cat([h[0].reshape(1), h[2].reshape(-1)])
-                      for h in handles]).cpu().numpy()
+    timings = comps[0].timings
+    with dispatch_span(timings):
+        handles = [_resolved(h) for h in handles]
+        flat = torch.cat([torch.cat([h[0].reshape(1), h[2].reshape(-1)])
+                          for h in handles])
+    with wait_span(timings):
+        flat = flat.cpu().numpy()
     out, pos = [], 0
     for c, (_score, dmap, w4, _args) in zip(comps, handles):
         n = w4.numel()

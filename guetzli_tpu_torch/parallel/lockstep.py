@@ -49,14 +49,13 @@ already waits once for every image.
 """
 
 import sys
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from guetzli_tpu_torch import comparator as cmp_mod
-from guetzli_tpu_torch import config, runtime
+from guetzli_tpu_torch import config, runtime, spans
 from guetzli_tpu_torch.search import zeroing
 from guetzli_tpu_torch.search.processor import QuantMatrixGenerator
 
@@ -156,8 +155,12 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
     lockstep rounds, then per masking pass one zeroing call over every
     image's blocks, then the back-end rounds. `threads` sizes the pool of
     the per-image host work. `phase_walls`, a dict, accumulates the
-    seconds of "quant", "zeroing" (the per-image masking state and the
-    zeroing call) and "backend". `counters`, a dict, accumulates
+    seconds of "image_setup" (input decode, the comparators and the
+    first compares), "quant", "zeroing" (the per-image masking state and
+    the zeroing call) and "backend", and within them the comparators'
+    "compare_dispatch" and "compare_wait" (comparator.py); under a
+    profiler each phase and each back-end round ("lockstep_round") is a
+    "phase.<name>" range too (spans.py). `counters`, a dict, accumulates
     "compares" (the comparators' whole-image compares, a wave's trials
     each), "batched" (those run by the CompareBatcher) and "flushes" (its
     stacked compares).
@@ -191,57 +194,62 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
         params = Params(force_420=force_420, try_420=try_420,
                         use_silver_screen=use_silver_screen)
         params.butteraugli_target = target
-        input_is_420 = False
-        rgb = jpg_in = None
-        try:
-            if api.is_jpeg(data):
-                # processor.cc:1029-1066: a 4:4:4 or 4:2:0 YCbCr JPEG is
-                # searched from its coefficients; a 4:2:0 one forces the
-                # 4:2:0 pass for that image.
-                jpg_in = reader.read_jpeg(data)
-                if reader.check_jpeg_sanity(jpg_in):
-                    rgb = decode_jpeg_to_rgb(jpg_in)
-                input_is_420 = jpg_in.is_420()
-                w, h = jpg_in.width, jpg_in.height
-            else:
-                rgb, w, h = read_png(data)
-        except (reader.JpegError, ValueError) as e:
-            sys.stderr.write("%s: %s\n" % (name, e))
-            continue
-        if rgb is None or w < 32 or h < 32 or target > 2.0:
+        with spans.timed(phase_walls, "image_setup"):
+            input_is_420 = False
+            rgb = jpg_in = None
+            try:
+                if api.is_jpeg(data):
+                    # processor.cc:1029-1066: a 4:4:4 or 4:2:0 YCbCr JPEG
+                    # is searched from its coefficients; a 4:2:0 one
+                    # forces the 4:2:0 pass for that image.
+                    jpg_in = reader.read_jpeg(data)
+                    if reader.check_jpeg_sanity(jpg_in):
+                        rgb = decode_jpeg_to_rgb(jpg_in)
+                    input_is_420 = jpg_in.is_420()
+                    w, h = jpg_in.width, jpg_in.height
+                else:
+                    rgb, w, h = read_png(data)
+            except (reader.JpegError, ValueError) as e:
+                sys.stderr.write("%s: %s\n" % (name, e))
+                continue
+            serial = rgb is None or w < 32 or h < 32 or target > 2.0
+            if not serial:
+                comp = Comparator(rgb, w, h, target, dev, padded=padded,
+                                  mesh=False)
+                comp.batcher = batcher
+                comp.timings = phase_walls
+                proc = Processor(params, comp, ProcessStats())
+                if jpg_in is None:
+                    jpg_in = encode_rgb_to_jpeg(rgb, w, h)
+                # Processor.process_jpeg_data's steps before the search;
+                # the first compare is queued here and fetched below.
+                encoded = proc.output_jpeg(jpg_in)
+                proc.final.score = -1
+                jpg0 = _copy_jpeg(jpg_in)
+                q_in = st.remove_original_quantization(jpg0)
+                img0 = st.CoeffImage.from_jpeg(jpg0)
+                ds_lo = 1 if (input_is_420 or force_420) else 0
+                ds_hi = 1 if (input_is_420 or force_420 or (
+                    try_420 and not _is_grayscale(jpg_in))) else 0
+                ctxs.append({"index": i, "proc": proc, "jpg_in": jpg_in,
+                             "q_in": q_in, "ds_lo": ds_lo, "ds_hi": ds_hi,
+                             "first": (img0, encoded,
+                                       comp.dispatch_compare(img0))})
+        if serial:
             try:
                 results[i] = api.encode_bytes(data, quality, params,
                                               device=dev)
             except ValueError as e:
                 sys.stderr.write("%s: %s\n" % (name, e))
-            continue
-        comp = Comparator(rgb, w, h, target, dev, padded=padded, mesh=False)
-        comp.batcher = batcher
-        proc = Processor(params, comp, ProcessStats())
-        if jpg_in is None:
-            jpg_in = encode_rgb_to_jpeg(rgb, w, h)
-        # Processor.process_jpeg_data's steps before the search; the
-        # first compare is queued here and fetched below.
-        encoded = proc.output_jpeg(jpg_in)
-        proc.final.score = -1
-        jpg0 = _copy_jpeg(jpg_in)
-        q_in = st.remove_original_quantization(jpg0)
-        img0 = st.CoeffImage.from_jpeg(jpg0)
-        ds_lo = 1 if (input_is_420 or force_420) else 0
-        ds_hi = 1 if (input_is_420 or force_420
-                      or (try_420 and not _is_grayscale(jpg_in))) else 0
-        ctxs.append({"index": i, "proc": proc, "jpg_in": jpg_in,
-                     "q_in": q_in, "ds_lo": ds_lo, "ds_hi": ds_hi,
-                     "first": (img0, encoded,
-                               comp.dispatch_compare(img0))})
-    for c in ctxs:
-        proc = c["proc"]
-        img0, encoded, pending = c.pop("first")
-        d = proc._recoverable(
-            lambda p=proc, m=img0: p.comparator.dispatch_compare(m),
-            proc.comparator.fetch_compare_plain, pending)
-        proc.stats.log(" BA[100.00%%] D[%6.4f]", d)
-        proc.maybe_output(encoded)
+    with spans.timed(phase_walls, "image_setup"):
+        for c in ctxs:
+            proc = c["proc"]
+            img0, encoded, pending = c.pop("first")
+            d = proc._recoverable(
+                lambda p=proc, m=img0: p.comparator.dispatch_compare(m),
+                proc.comparator.fetch_compare_plain, pending)
+            proc.stats.log(" BA[100.00%%] D[%6.4f]", d)
+            proc.maybe_output(encoded)
 
     for downsample in (0, 1):
         batch = [c for c in ctxs if c["ds_lo"] <= downsample <= c["ds_hi"]]
@@ -260,10 +268,9 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
             jpgs.append(jpg)
             imgs.append(img)
             best_qs.append(c["q_in"].copy())
-        t0 = time.time()
-        oks = lockstep_select_quant_matrix(
-            procs, jpgs, [downsample != 0] * len(batch), best_qs, imgs)
-        _add_wall(phase_walls, "quant", t0)
+        with spans.timed(phase_walls, "quant"):
+            oks = lockstep_select_quant_matrix(
+                procs, jpgs, [downsample != 0] * len(batch), best_qs, imgs)
         for i, ok in enumerate(oks):
             if not ok:
                 best_qs[i][:] = 1
@@ -290,11 +297,6 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
     return [(name, out) for (name, _data), out in zip(inputs, results)]
 
 
-def _add_wall(phase_walls, key, t0):
-    if phase_walls is not None:
-        phase_walls[key] = phase_walls.get(key, 0.0) + (time.time() - t0)
-
-
 def _pool_map(fn, items, threads):
     """list(map(fn, items)), on a pool of up to `threads` threads."""
     if threads <= 1 or len(items) <= 1:
@@ -312,7 +314,6 @@ def _corpus_masking(trip, comp_mask, target_muls, stop_early, threads=1,
     image. Per-block math is independent of the other blocks of the
     launch, so every image's candidates equal those of its own serial
     pass bit for bit."""
-    t_zero = time.time()
 
     def prep(args):
         proc, jpg, img = args
@@ -323,12 +324,14 @@ def _corpus_masking(trip, comp_mask, target_muls, stop_early, threads=1,
             real = np.arange(len(blocks), dtype=np.int64)
         return blocks, orig, grid, real
 
-    per = []
-    for (proc, _jpg, img), (blocks, orig, grid, real) in zip(
-            trip, _pool_map(prep, trip, threads)):
-        mode, aux = proc.masking_aux(img, comp_mask, grid)
-        per.append((blocks, orig, mode, aux,
-                    np.float32(proc.comparator.block_error_limit()), real))
+    with spans.timed(phase_walls, "zeroing"):
+        per = []
+        for (proc, _jpg, img), (blocks, orig, grid, real) in zip(
+                trip, _pool_map(prep, trip, threads)):
+            mode, aux = proc.masking_aux(img, comp_mask, grid)
+            per.append((blocks, orig, mode, aux,
+                        np.float32(proc.comparator.block_error_limit()),
+                        real))
     # One image can keep 4:4:4 geometry in the 4:2:0 pass (a grayscale
     # image's all-zero chroma is not downsampled): one zeroing call per
     # mode.
@@ -340,7 +343,18 @@ def _corpus_masking(trip, comp_mask, target_muls, stop_early, threads=1,
                             [target_muls[i] for i in idx], stop_early,
                             threads, phase_walls)
         return
-    mode = modes[0]
+    with spans.timed(phase_walls, "zeroing"):
+        csr = _corpus_zeroing(trip, per, comp_mask, modes[0])
+    del per
+    with spans.timed(phase_walls, "backend"):
+        _corpus_back_end(trip, comp_mask, target_muls, stop_early, threads,
+                         *csr)
+
+
+def _corpus_zeroing(trip, per, comp_mask, mode):
+    """The pass's one zeroing call over every image's blocks: the CSR
+    (offsets, candidate indexes, errors) of the images' real blocks, and
+    each image's count of them."""
     # Each image's rows: its blocks (on its bucket grid when padded), of
     # which the real ones, `real`, give its rows of the CSR.
     rows = [len(p[0]) for p in per]
@@ -380,10 +394,13 @@ def _corpus_masking(trip, comp_mask, target_muls, stop_early, threads=1,
             # The operands stay referenced by cat_aux: free the cache
             # and run the call again.
             runtime.release_memory(p0.comparator.device, "corpus zeroing")
-    del cat_blocks, cat_orig, cat_aux, per
-    _add_wall(phase_walls, "zeroing", t_zero)
-    t_back = time.time()
+    return cat_off, cat_idx, cat_err, counts
 
+
+def _corpus_back_end(trip, comp_mask, target_muls, stop_early, threads,
+                     cat_off, cat_idx, cat_err, counts):
+    """The pass's back-end loops in lockstep rounds, each round a
+    "phase.lockstep_round" profiler range (spans.py)."""
     gens = []
     row0 = 0
     for (proc, jpg, img), mul, n in zip(trip, target_muls, counts):
@@ -405,20 +422,22 @@ def _corpus_masking(trip, comp_mask, target_muls, stop_early, threads=1,
         except StopIteration:
             return None
 
-    steps = _pool_map(advance, [(g, None) for _p, g in gens], threads)
+    with spans.timed(None, "lockstep_round"):
+        steps = _pool_map(advance, [(g, None) for _p, g in gens], threads)
     active = [(p, g, h) for (p, g), h in zip(gens, steps) if h is not None]
     while active:
-        comps = [p.comparator for p, _g, _h in active]
-        handles = [h for _p, _g, h in active]
-        try:
-            results = cmp_mod.fetch_compare_many(comps, handles)
-        except runtime.RECOVERABLE:
-            runtime.release_memory(comps[0].device, "the corpus back end")
-            results = [p._recoverable(
-                lambda p=p, h=h: p.comparator.replay(h),
-                p.comparator.fetch_compare, h) for p, _g, h in active]
-        steps = _pool_map(advance, [(g, r) for (_p, g, _h), r
-                                    in zip(active, results)], threads)
+        with spans.timed(None, "lockstep_round"):
+            comps = [p.comparator for p, _g, _h in active]
+            handles = [h for _p, _g, h in active]
+            try:
+                results = cmp_mod.fetch_compare_many(comps, handles)
+            except runtime.RECOVERABLE:
+                runtime.release_memory(comps[0].device,
+                                       "the corpus back end")
+                results = [p._recoverable(
+                    lambda p=p, h=h: p.comparator.replay(h),
+                    p.comparator.fetch_compare, h) for p, _g, h in active]
+            steps = _pool_map(advance, [(g, r) for (_p, g, _h), r
+                                        in zip(active, results)], threads)
         active = [(p, g, h) for (p, g, _h), h in zip(active, steps)
                   if h is not None]
-    _add_wall(phase_walls, "backend", t_back)

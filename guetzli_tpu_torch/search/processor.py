@@ -28,12 +28,12 @@ import ctypes
 import gc
 import sys
 import time
-from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from guetzli_tpu_torch import config, consts, native, runtime
+from guetzli_tpu_torch import comparator as cmp_mod
+from guetzli_tpu_torch import config, consts, native, runtime, spans
 from guetzli_tpu_torch.codec import histograms as hg
 from guetzli_tpu_torch.codec import jpeg_data as jd
 from guetzli_tpu_torch.codec import writer as jwriter
@@ -80,15 +80,11 @@ class ProcessStats:
     def inc(self, name, amount=1):
         self.counters[name] = self.counters.get(name, 0) + amount
 
-    @contextmanager
     def timed(self, name):
-        """Accumulate the wall time of the block under timings[name]."""
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            self.timings[name] = (self.timings.get(name, 0.0)
-                                  + time.time() - t0)
+        """Accumulate the wall time of the block under timings[name]
+        (spans.timed: a "phase.<name>" profiler range too while a
+        profiler runs)."""
+        return spans.timed(self.timings, name)
 
     def log(self, fmt, *args):
         if self.debug:
@@ -579,6 +575,7 @@ class Processor:
         deliver the oldest fetch, applying the distance and distmap here
         on the main thread. The joins sit at fixed points of the
         generator, so the decisions do not depend on the fetches' timing.
+        The wait the main thread sees at a join is its compare_wait.
         A recoverable error in a fetch replays that compare from the
         current host state (runtime.py)."""
         import collections
@@ -586,7 +583,8 @@ class Processor:
 
         comp = self.comparator
         inflight = collections.deque()
-        ex = ThreadPoolExecutor(max_workers=max(1, lag))
+        ex = ThreadPoolExecutor(max_workers=max(1, lag),
+                                initializer=cmp_mod.prefetch_thread)
         try:
             msg = next(gen)
             while True:
@@ -600,7 +598,8 @@ class Processor:
                 fut, pending = inflight.popleft()
                 with self.stats.timed("backend_fetch"):
                     try:
-                        d, w4, dmap = fut.result()
+                        with cmp_mod.wait_span(comp.timings):
+                            d, w4, dmap = fut.result()
                         comp.distance = d
                         comp.distmap = dmap
                         result = (d, w4)
@@ -1027,20 +1026,21 @@ class Processor:
             sys.stderr.write("Unsupported sampling factors\n")
             return False
 
-        encoded = self.output_jpeg(jpg_in)
-        self.final.score = -1
-        self.stats.log("Original Out[%7d]", len(encoded))
-        if self.comparator is None:
-            self.stats.log(" <image too small for Butteraugli>\n")
-            self.final.jpeg_data = encoded
-            self.final.score = len(encoded)
-            return True
+        with self.stats.timed("image_setup"):
+            encoded = self.output_jpeg(jpg_in)
+            self.final.score = -1
+            self.stats.log("Original Out[%7d]", len(encoded))
+            if self.comparator is None:
+                self.stats.log(" <image too small for Butteraugli>\n")
+                self.final.jpeg_data = encoded
+                self.final.score = len(encoded)
+                return True
 
-        jpg = _copy_jpeg(jpg_in)
-        q_in = st.remove_original_quantization(jpg)
-        img = st.CoeffImage.from_jpeg(jpg)
-        self._compare(img)
-        self.maybe_output(encoded)
+            jpg = _copy_jpeg(jpg_in)
+            q_in = st.remove_original_quantization(jpg)
+            img = st.CoeffImage.from_jpeg(jpg)
+            self._compare(img)
+            self.maybe_output(encoded)
         try_420 = 1 if (input_is_420 or self.params.force_420
                         or (self.params.try_420
                             and not _is_grayscale(jpg_in))) else 0
@@ -1170,26 +1170,28 @@ def process_jpeg_bytes(params: Params, data: bytes,
     or unsupported input. `mesh`: the comparator's (comparator.py)."""
     from guetzli_tpu_torch.codec import reader
     stats = stats or ProcessStats()
-    try:
-        jpg = reader.read_jpeg(data)
-    except reader.JpegError as e:
-        sys.stderr.write("Can't read jpg data from input file: %s\n" % e)
-        return None
-    if not reader.check_jpeg_sanity(jpg):
-        sys.stderr.write("Unsupported input JPEG (unexpectedly large "
-                         "coefficient values).\n")
-        return None
-    rgb = decode_jpeg_to_rgb(jpg)
+    with stats.timed("image_setup"):
+        try:
+            jpg = reader.read_jpeg(data)
+        except reader.JpegError as e:
+            sys.stderr.write("Can't read jpg data from input file: %s\n"
+                             % e)
+            return None
+        if not reader.check_jpeg_sanity(jpg):
+            sys.stderr.write("Unsupported input JPEG (unexpectedly large "
+                             "coefficient values).\n")
+            return None
+        rgb = decode_jpeg_to_rgb(jpg)
+        comparator = None
+        if rgb is not None and jpg.width >= 32 and jpg.height >= 32:
+            comparator = _comparator(rgb, jpg.width, jpg.height, params,
+                                     stats, device, mesh)
     if rgb is None:
         # ProcessUnsupportedJpegData (processor.cc:1069-1153): CMYK/YCCK,
         # other samplings (4:2:2, 4:1:1), grayscale and RGB-tagged JPEGs
         # are decoded to RGB and re-encoded from pixels.
         return process_unsupported_jpeg_bytes(params, data, stats, device,
                                               mesh)
-    comparator = None
-    if jpg.width >= 32 and jpg.height >= 32:
-        comparator = Comparator(rgb, jpg.width, jpg.height,
-                                params.butteraugli_target, device, mesh=mesh)
     proc = Processor(params, comparator, stats)
     if not proc.process_jpeg_data(jpg):
         return None
@@ -1203,9 +1205,11 @@ def process_unsupported_jpeg_bytes(params: Params, data: bytes,
     JPEG the reader parses to RGB (codec/full_decode.py, libjpeg's integer
     semantics) and encode the pixels."""
     from guetzli_tpu_torch.codec import full_decode, reader
+    stats = stats or ProcessStats()
     try:
-        jpg = reader.read_jpeg(data)
-        rgb, w, h = full_decode.decode_any_to_rgb(jpg)
+        with stats.timed("image_setup"):
+            jpg = reader.read_jpeg(data)
+            rgb, w, h = full_decode.decode_any_to_rgb(jpg)
     except (reader.JpegError, ValueError) as e:
         sys.stderr.write("Can't decode unsupported JPEG: %s\n" % e)
         return None
@@ -1221,12 +1225,21 @@ def process_rgb(params: Params, rgb, w, h, stats: ProcessStats = None,
     is where the comparator and the kernels run; `mesh` the ranks it
     runs over (comparator.Comparator: None reads GUETZLI_TPU_MESH)."""
     stats = stats or ProcessStats()
-    jpg = encode_rgb_to_jpeg(rgb, w, h)
-    comparator = None
-    if w >= 32 and h >= 32:
-        comparator = Comparator(rgb, w, h, params.butteraugli_target, device,
-                                mesh=mesh)
+    with stats.timed("image_setup"):
+        jpg = encode_rgb_to_jpeg(rgb, w, h)
+        comparator = None
+        if w >= 32 and h >= 32:
+            comparator = _comparator(rgb, w, h, params, stats, device, mesh)
     proc = Processor(params, comparator, stats)
     if not proc.process_jpeg_data(jpg):
         raise ValueError("processing failed")
     return proc.final.jpeg_data
+
+
+def _comparator(rgb, w, h, params, stats, device, mesh):
+    """The image's Comparator, its compare spans (compare_dispatch,
+    compare_wait) charged to stats.timings."""
+    comparator = Comparator(rgb, w, h, params.butteraugli_target, device,
+                            mesh=mesh)
+    comparator.timings = stats.timings
+    return comparator

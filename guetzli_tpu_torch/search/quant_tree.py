@@ -34,6 +34,7 @@ in a corpus whose other compares go through a CompareBatcher.
 import numpy as np
 import torch
 
+from guetzli_tpu_torch import comparator as cmp_mod
 from guetzli_tpu_torch import runtime
 from guetzli_tpu_torch.search import state as st
 
@@ -227,9 +228,13 @@ def lockstep_select_quant_matrix_tree(procs, jpgs, downsamples, best_qs,
         if not active:
             break
         pend = [(s, s.dispatch_waves()) for s in active]
+        timings = active[0].proc.comparator.timings
         try:
-            flat = torch.cat([h[0][:h[1]] for _s, p in pend
-                              for h, _c in p]).cpu().numpy()
+            with cmp_mod.dispatch_span(timings):
+                flat = torch.cat([h[0][:h[1]] for _s, p in pend
+                                  for h, _c in p])
+            with cmp_mod.wait_span(timings):
+                flat = flat.cpu().numpy()
         except runtime.RECOVERABLE:
             runtime.release_memory(active[0].proc.comparator.device,
                                    "the corpus quant waves")
