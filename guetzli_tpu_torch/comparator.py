@@ -30,7 +30,21 @@ It also offers the JAX package's accelerator search route:
 
 PyTorch runs eagerly and CUDA work is queued asynchronously, so the
 dispatch_* / fetch_* pairs keep the JAX package's structure: a dispatch
-queues the device work, its fetch reads the results on the host.
+queues the device work, its fetch reads the results on the host. On a
+CUDA device (and not under a mesh) the compares run as CUDA graphs,
+captured once and replayed (compare_graphs.py), keyed by what fixes
+their op sequence and shapes (and the knobs that choose ops):
+"plain", the whole-image compare of a 4:4:4 or 4:2:0 coefficient image
+to its flat score and diffmap, which the plain compare (the first
+compare, the quant trials without the tree), the compare + weights of a
+coefficient image and the resident state's compare share (the resident
+state is copied into the graph's input); "weights", the block weights
+of such a compare's diffmap, by direction, float32 target and grid
+factors; and "quant", a wave (its size in its input's shape). The
+CompareBatcher's stacks and the banded compares stay eager. `counters`
+(a dict; the serial search sets its ProcessStats.counters) counts each
+dispatch as compare_graph_captures, compare_graph_replays or
+compare_eager.
 
 Two spans (spans.py) time them on the host, into the comparator's
 `timings` dict (None: the profiler's trace only):
@@ -54,7 +68,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from guetzli_tpu_torch import config, consts, runtime, spans
+from guetzli_tpu_torch import compare_graphs, config, consts, runtime, spans
+from guetzli_tpu_torch.ops import devconst
 from guetzli_tpu_torch.ops import diffmap as dm
 from guetzli_tpu_torch.ops import image as img_ops
 from guetzli_tpu_torch.ops import tiles as tile_ops
@@ -481,6 +496,18 @@ class DeferredCompare:
         return self._run() + (self.args,)
 
 
+def _score_weights(score, w4):
+    """score and w4 as one flat vector: the prefix of the buffer a
+    compare + weights wrote them into (Comparator._weighted), else their
+    concatenation."""
+    base = score._base
+    if base is not None and w4._base is base and base.dim() == 1 \
+            and score.storage_offset() == 0 and w4.storage_offset() == 1 \
+            and w4.is_contiguous():
+        return base[:1 + w4.numel()]
+    return torch.cat([score.reshape(1), w4.reshape(-1)])
+
+
 def _resolved(handle):
     return handle.resolve() if isinstance(handle, DeferredCompare) \
         else handle
@@ -542,6 +569,10 @@ class Comparator:
         # the serial search sets its ProcessStats.timings, the corpus
         # driver its phase walls.
         self.timings = None
+        # Dispatches by how they ran (module docstring).
+        self.counters = {}
+        self._graphs = compare_graphs.CompareGraphs(
+            self.device, self.device.type == "cuda" and self.mesh is None)
         self.xyb0 = self._original_opsin() if xyb0 is None else xyb0
         self.distance = 0.0
         self.distmap = None
@@ -557,6 +588,10 @@ class Comparator:
 
     def _up(self, a):
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    def _up_async(self, a):
+        """_up without waiting for the stream (compare_graphs.to_device)."""
+        return compare_graphs.to_device(a, self.device)
 
     def _original_opsin(self):
         """The original's opsin [3, H, W], or [3, Hp, Wp] on a bucket
@@ -607,7 +642,9 @@ class Comparator:
         or start_block_comparisons rebuilds, and the back end's resident
         coefficients, which a replay re-syncs from the host image. The
         search state lives on the host, so a replayed dispatch gives the
-        same result."""
+        same result. The compare graphs are dropped: the next use of each
+        key captures again."""
+        self._graphs.drop()
         self.xyb0 = self._original_opsin()
         self.distmap = None
         self._dev_coeffs = None
@@ -616,6 +653,65 @@ class Comparator:
 
     # -- full-image comparison ------------------------------------------
 
+    def _count(self, mode=compare_graphs.EAGER):
+        compare_graphs.count(self.counters, mode)
+
+    def _graph_run(self, key, fn, inputs):
+        """(fn(*inputs), how it ran) by the compare graph of `key` and the
+        knobs that choose the chain's ops (compare_graphs.py)."""
+        key += (config.lane_safe(), config.exact_lut(), config.sel_matmul())
+        return self._graphs.run(key, fn, inputs, _charged(self.timings))
+
+    def _flat_compare(self, kind, compare, inputs):
+        """(the flat [1 + diffmap pixels] score and diffmap of
+        compare(*inputs), how it ran): the graph of ("plain", kind),
+        which the plain compare, the compare + weights of a coefficient
+        image and the resident compare share."""
+        def flat(*planes):
+            score, dmap = compare(*planes)
+            return (torch.cat([score.reshape(1), dmap.reshape(-1)]),)
+        (out,), mode = self._graph_run(("plain", kind), flat, inputs)
+        return out, mode
+
+    def _kind(self, img):
+        return "444" if img.is_444() else "420"
+
+    def _planes(self, img):
+        """An image's coefficient planes for a compare (numpy): ([3, NB,
+        64],) for 4:4:4, (y, u, v) for 4:2:0, on the bucket's grids if
+        padded."""
+        if self.geom is not None:
+            planes = self._padded_planes(img)
+            return (planes,) if img.is_444() else planes
+        if img.is_444():
+            return (img.coeffs,)
+        return tuple(c.coeffs for c in img.comps)
+
+    def _compare_fn(self, img):
+        """planes on the device (_planes) -> (score, diffmap) of this
+        comparator's single compare."""
+        if self.geom is not None:
+            kind, wp, hp = self._kind(img), self.geom.wp, self.geom.hp
+
+            def padded(*planes):
+                coeffs = planes[0][:, None] if kind == "444" else tuple(
+                    p[None] for p in planes)
+                score, dmap = _compare_dyn(kind, coeffs, *self._row(), wp,
+                                           hp)
+                return score[0], dmap[0]
+            return padded
+        w, h = self.width, self.height
+        if img.is_444():
+            return lambda c: _full_compare(c, self.xyb0, img.bw, img.bh, w,
+                                           h)
+        y, u, _v = img.comps
+        return lambda *p: _full_compare_420(*p, self.xyb0, y.bw, y.bh, u.bw,
+                                            u.bh, w, h)
+
+    def _dmap_shape(self):
+        g = self.geom
+        return (g.hp, g.wp) if g is not None else (self.height, self.width)
+
     @_dispatches
     def dispatch_compare(self, img):
         """Queue a whole-image compare of a CoeffImage (4:4:4 or 4:2:0);
@@ -623,27 +719,16 @@ class Comparator:
         the fused compare + unit-target weights of its bucket group, as
         in the JAX package."""
         self.compares += 1
-        if self.geom is not None:
-            if self.batcher is not None:
-                return self._enqueue(img, 1, 1.0, 1, 1, None)
-            planes = self._padded_planes(img)
-            if img.is_444():
-                coeffs = self._up(planes)[:, None]
-            else:
-                coeffs = tuple(self._up(p)[None] for p in planes)
-            score, dmap = _compare_dyn("444" if img.is_444() else "420",
-                                       coeffs, *self._row(), self.geom.wp,
-                                       self.geom.hp)
-            return score[0], dmap[0]
+        if self.geom is not None and self.batcher is not None:
+            self._count()
+            return self._enqueue(img, 1, 1.0, 1, 1, None)
         if self.bands is not None:
+            self._count()
             return self._band_compare(img)
-        if img.is_444():
-            return _full_compare(self._up(img.coeffs), self.xyb0, img.bw,
-                                 img.bh, self.width, self.height)
-        y, u, v = img.comps
-        return _full_compare_420(self._up(y.coeffs), self._up(u.coeffs),
-                                 self._up(v.coeffs), self.xyb0, y.bw, y.bh,
-                                 u.bw, u.bh, self.width, self.height)
+        out, mode = self._flat_compare(self._kind(img), self._compare_fn(img),
+                                       self._planes(img))
+        self._count(mode)
+        return out[0], out[1:].view(self._dmap_shape())
 
     def _band_compare(self, img):
         """(score over every rank, the band's diffmap rows) of a 4:4:4 or
@@ -722,14 +807,16 @@ class Comparator:
     def quant_batch_sizes(self):
         """The wave sizes this image may use: JAX's (4, 8) where a wave
         fits in half of the card's free memory (the allocator's cached
-        blocks count as free) at the measured bytes per trial, else the
-        number that fits, at least 1; on a bucket the pixels are the
-        bucket's. The CPU takes (4, 8)."""
+        blocks count as free, but not those of the compare graphs'
+        pools, which only their graphs use) at the measured bytes per
+        trial, else the number that fits, at least 1; on a bucket the
+        pixels are the bucket's. The CPU takes (4, 8)."""
         if self.device.type != "cuda":
             return self._QUANT_BATCH_SIZES
         free, _total = torch.cuda.mem_get_info(self.device)
-        free += (torch.cuda.memory_reserved(self.device)
-                 - torch.cuda.memory_allocated(self.device))
+        free += max(0, torch.cuda.memory_reserved(self.device)
+                    - torch.cuda.memory_allocated(self.device)
+                    - compare_graphs.pool_bytes(self.device))
         g = self.geom
         per_trial = ((g.wp * g.hp if g else self.width * self.height)
                      * self._QUANT_TRIAL_BYTES_PER_PIXEL)
@@ -743,17 +830,25 @@ class Comparator:
         handle's fetch is fetch_quant_scores. The wave runs exactly its
         trials: no padding to a batch size (JAX pads for its compile
         cache)."""
-        q = self._up(np.stack([np.asarray(x, np.int32).reshape(3, 64)
-                               for x in qs]))
+        q = np.stack([np.asarray(x, np.int32).reshape(3, 64) for x in qs])
         self.compares += len(qs)
         kind, planes, grid = base
         if self.geom is not None:
             fn = _quant_scores_444_dyn if kind == "444" \
                 else _quant_scores_420_dyn
-            return fn(*planes, q, *self._row(), self.geom.wp,
-                      self.geom.hp), len(qs)
-        fn = _quant_scores_444 if kind == "444" else _quant_scores_420
-        scores = fn(*planes, q, self.xyb0, *grid, self.width, self.height)
+            wp, hp = self.geom.wp, self.geom.hp
+
+            def wave(q, *p):
+                return (fn(*p, q, *self._row(), wp, hp),)
+        else:
+            fn = _quant_scores_444 if kind == "444" else _quant_scores_420
+
+            def wave(q, *p):
+                return (fn(*p, q, self.xyb0, *grid, self.width,
+                           self.height),)
+        (scores,), mode = self._graph_run(("quant", kind), wave,
+                                          (q,) + tuple(planes))
+        self._count(mode)
         return scores, len(qs)
 
     def fetch_quant_scores(self, handle):
@@ -1000,8 +1095,10 @@ class Comparator:
         if self.geom is None:
             return _weights_all_radii_impl(dmap, _F32(target), sizex, sizey,
                                            gbw, gbh, direction > 0)
-        w4 = _weights_all_radii_dyn(dmap[None], self._up(_targets([target])),
-                                    sizex, sizey, direction > 0)
+        tgt = devconst.get(("weights_targets", float(_F32(target))),
+                           self.device, lambda: _targets([target]))
+        w4 = _weights_all_radii_dyn(dmap[None], tgt, sizex, sizey,
+                                    direction > 0)
         return _real_weights(w4[0], gbw, gbh)
 
     def weights_all_radii(self, direction, target_mul, factor_x, factor_y):
@@ -1036,10 +1133,40 @@ class Comparator:
         args = (img, direction, target_mul, factor_x, factor_y, False)
         if self.batcher is not None and self.geom is not None:
             self.compares += 1
+            self._count()
             return self._enqueue(img, direction, target_mul, factor_x,
                                  factor_y, args)
-        return self._deferred(lambda: self._with_weights(
-            *self.dispatch_compare(img), *args)[:3], args)
+        return self._deferred(lambda: self._compare_weights(img, args), args)
+
+    def _compare_weights(self, img, args):
+        """(score, dmap, w4) of a coefficient image's compare + weights."""
+        self.compares += 1
+        if self.bands is not None:
+            self._count()
+            return self._with_weights(*self._band_compare(img), *args)[:3]
+        return self._weighted(self._kind(img), self._planes(img), args)
+
+    def _weighted(self, kind, inputs, args):
+        """(score, dmap, w4) of a compare of `inputs` (_planes of args'
+        image, or the resident state) and its block weights (args as
+        replay's): the compare's graph (_flat_compare), then the graph
+        of the weights' key, whose output starts with the score and the
+        weights (fetch_compare_pure copies that prefix)."""
+        img, direction, target_mul, factor_x, factor_y, _res = args
+        _sx, _sy, gbw, gbh = self._grid_dims(factor_x, factor_y)
+        shape = self._dmap_shape()
+        cmp, mode = self._flat_compare(kind, self._compare_fn(img), inputs)
+
+        def weights(flat):
+            w4 = self._weights(flat[1:].view(shape), direction, target_mul,
+                               factor_x, factor_y)
+            return (torch.cat([flat[:1], w4.reshape(-1)]),)
+        key = ("weights", direction > 0,
+               float(_F32(self.target_distance * target_mul)), factor_x,
+               factor_y)
+        (sw,), mode2 = self._graph_run(key, weights, (cmp,))
+        self._count(compare_graphs.combined(mode, mode2))
+        return sw[0], cmp[1:].view(shape), sw[1:].view(4, gbh * gbw)
 
     def _deferred(self, run, args):
         """run() -> (score, dmap, w4) now, or at the handle's read when a
@@ -1088,7 +1215,7 @@ class Comparator:
         nothing to self.timings."""
         with dispatch_span(self.timings):
             score, dmap, w4, _args = _resolved(handle)
-            flat = torch.cat([score.reshape(1), w4.reshape(-1)])
+            flat = _score_weights(score, w4)
         with wait_span(self.timings):
             flat = flat.cpu().numpy()
         return float(flat[0]), flat[1:].reshape(w4.shape), dmap
@@ -1114,10 +1241,15 @@ class Comparator:
 
     def backend_sync_full(self, img):
         """Upload the back end's coefficient state [3, NB, 64] int32 from
-        the host image (on a bucket [3, NBp, 64]); the sparse dispatches
-        update it in place."""
-        self._dev_coeffs = self._up(img.coeffs if self.geom is None
-                                    else self._padded_planes(img))
+        the host image (on a bucket [3, NBp, 64]) into its buffer, without
+        waiting for the stream; the sparse dispatches update it in
+        place."""
+        host = img.coeffs if self.geom is None else self._padded_planes(img)
+        if self._dev_coeffs is None or \
+                tuple(self._dev_coeffs.shape) != host.shape:
+            self._dev_coeffs = torch.empty(host.shape, dtype=torch.int32,
+                                           device=self.device)
+        compare_graphs.copy_into(self._dev_coeffs, host)
         self._dev_grid = (img.bw, img.bh)
 
     def _state_rows(self, blocks):
@@ -1129,7 +1261,8 @@ class Comparator:
 
     def _scatter(self, cidx, cvals):
         """Set flat entries c*NB*64 + b*64 + k of the resident state."""
-        self._dev_coeffs.view(-1)[self._up(cidx)] = self._up(cvals)
+        self._dev_coeffs.view(-1)[self._up_async(cidx)] = \
+            self._up_async(cvals)
 
     def dispatch_compare_sparse_coeffs(self, img, blocks_idx, cks, vals,
                                        direction, target_mul, factor_x,
@@ -1167,25 +1300,17 @@ class Comparator:
 
         def run():
             if len(changed):
-                self._dev_coeffs[:, self._up(self._state_rows(changed)),
-                                 :] = self._up(np.stack(
-                                     [c.coeffs[changed] for c in img.comps]))
+                self._dev_coeffs[:, self._up_async(self._state_rows(
+                    changed)), :] = self._up_async(np.stack(
+                        [c.coeffs[changed] for c in img.comps]))
             return self._compare_resident(args)
         return self._deferred(run, args)
 
     def _compare_resident(self, args):
-        """(score, dmap, w4) of the resident state; args as replay's."""
+        """(score, dmap, w4) of the resident state; args as replay's (its
+        image has the resident state's grid)."""
         self.compares += 1
-        if self.geom is not None:
-            score, dmap = _compare_dyn("444", self._dev_coeffs[:, None],
-                                       *self._row(), self.geom.wp,
-                                       self.geom.hp)
-            score, dmap = score[0], dmap[0]
-        else:
-            bw, bh = self._dev_grid
-            score, dmap = _full_compare(self._dev_coeffs, self.xyb0, bw, bh,
-                                        self.width, self.height)
-        return self._with_weights(score, dmap, *args)[:3]
+        return self._weighted("444", (self._dev_coeffs,), args)
 
     def compute_block_error_adjustment_weights(
             self, direction, max_block_dist, target_mul, factor_x, factor_y,
@@ -1248,8 +1373,7 @@ def fetch_compare_many(comps, handles):
     timings = comps[0].timings
     with dispatch_span(timings):
         handles = [_resolved(h) for h in handles]
-        flat = torch.cat([torch.cat([h[0].reshape(1), h[2].reshape(-1)])
-                          for h in handles])
+        flat = torch.cat([_score_weights(h[0], h[2]) for h in handles])
     with wait_span(timings):
         flat = flat.cpu().numpy()
     out, pos = [], 0

@@ -1,0 +1,322 @@
+"""CUDA graphs of a comparator's whole-image compares.
+
+The eager compare chain makes ~800 PyTorch calls, and the host takes
+5-20 times longer to issue them than the card takes to run them. A
+Comparator on a CUDA device therefore captures each compare form it
+runs into a torch.cuda.CUDAGraph and replays it: one graph launch (two
+for a compare with its block weights) instead of the chain's. The
+graphs replay exactly the kernels that eager mode launches, on the same
+data, so every result is the same bit for bit.
+
+A graph's key is the compare form and everything that fixes its op
+sequence and shapes (comparator.py gives it); the shapes and dtypes of
+the inputs are added here. A comparator's first compare runs eagerly:
+it builds the chain's device constants (ops/devconst.py) and the
+libraries' per-shape state (cuDNN's plans, cuBLAS's handle), which
+every form at the image's geometry shares, since each trial of a wave
+runs at the shape of a single compare. From then on a key's first use
+captures the chain and replays it, and later uses replay. A constant
+still missing at a capture (one a form adds, or one dropped from the
+cache) gives up the capture for an eager run, which makes it; the key's
+next use captures. The inputs are copied into the graph's static
+buffers before each replay (host arrays through pinned memory, without
+waiting for the stream), and the outputs are copied out after it, so
+that every caller owns its results while the graph runs again.
+
+Every comparator's graphs on a device share one memory pool, which
+stays open between images (a one-kernel graph of its own holds it): a
+pool per comparator would cudaMalloc its segments afresh for each
+image and keep them until the allocator's cache is emptied, which a
+capture cannot do, so a corpus ran out of memory. Graphs of one pool
+may reuse each other's intermediate memory, which is safe as long as no
+two run at once and each replay's outputs are copied before another
+graph replays: every compare runs on the device's current stream, and
+one lock for the process covers each capture (on a side stream, in
+thread-local error mode) and each replay with its copies (compares may
+come from several threads). drop() releases a comparator's graphs;
+drop_all() releases every graph on a device and closes the pool, whose
+memory the allocator then frees (recovery from an out-of-memory error,
+runtime.py); the next use of a key captures again, into a new pool. A
+capture that fails leaves its key eager for the comparator; one that
+fails for another reason than memory also closes the pool.
+
+Counters (comparator.py keeps them): compare_graph_captures,
+compare_graph_replays and compare_eager, one per compare dispatched
+(combined() names a dispatch of several graphs). Span:
+compare_capture, the seconds of capture and instantiation.
+"""
+
+import sys
+import threading
+import warnings
+import weakref
+
+import numpy as np
+import torch
+
+from guetzli_tpu_torch import spans
+from guetzli_tpu_torch.ops import devconst
+
+CAPTURES = "compare_graph_captures"
+REPLAYS = "compare_graph_replays"
+EAGER = "compare_eager"
+COUNTERS = (CAPTURES, REPLAYS, EAGER)
+
+_lock = threading.RLock()
+_side_streams = {}
+_pools = {}               # device -> _Pool
+_live = weakref.WeakSet()
+_warned = []
+
+
+class _Pool:
+    """A device's graph memory pool: its handle, the graph that holds it
+    open, and the bytes the captures into it reserved."""
+
+    def __init__(self):
+        self.handle = None
+        self.bytes = 0
+        self._hold = None
+
+    def open(self, graph_class, device):
+        """The pool's handle, a new pool if it is closed."""
+        if self.handle is None:
+            self.handle = graph_class.new_pool(device)
+            # The allocator keeps a pool while a graph captured into it
+            # lives; a new capture into a pool it let go is refused.
+            self._hold = graph_class(device, self.handle)
+            self._hold.capture(
+                lambda: torch.zeros(1, device=device).add_(1))
+        return self.handle
+
+    def close(self):
+        self.handle = self._hold = None
+        self.bytes = 0
+
+
+def _pool(device):
+    key = str(device) if device.index is not None or device.type != \
+        "cuda" else "cuda:%d" % torch.cuda.current_device()
+    return _pools.setdefault(key, _Pool())
+
+
+def count(counters, name):
+    counters[name] = counters.get(name, 0) + 1
+
+
+def combined(*modes):
+    """How a dispatch of several graphs ran: eager if any part did, else
+    a capture if any part captured, else a replay."""
+    for mode in (EAGER, CAPTURES):
+        if mode in modes:
+            return mode
+    return REPLAYS
+
+
+def to_device(a, device):
+    """A host array on `device`: on the card through pinned memory and a
+    copy that does not wait for the stream (the pinned block is reused
+    only once the copy is done), else torch.as_tensor."""
+    a = np.ascontiguousarray(a)
+    if device.type != "cuda":
+        return torch.as_tensor(a, device=device)
+    return torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
+
+
+def copy_into(dst, a):
+    """Write host array or device tensor `a` into device tensor `dst`
+    (to_device's copy for a host array)."""
+    if isinstance(a, torch.Tensor):
+        dst.copy_(a)
+    elif dst.device.type != "cuda":
+        dst.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    else:
+        dst.copy_(torch.from_numpy(np.ascontiguousarray(a)).pin_memory(),
+                  non_blocking=True)
+
+
+def _side_stream(device):
+    if device not in _side_streams:
+        _side_streams[device] = torch.cuda.Stream(device)
+    return _side_streams[device]
+
+
+class CudaGraph:
+    """One captured chain on a CUDA device (torch.cuda.CUDAGraph), in the
+    owner's memory pool. Not the torch.cuda.graph context manager, whose
+    entry collects garbage and empties the allocator's cache."""
+
+    def __init__(self, device, pool):
+        self.device = device
+        self.pool = pool
+        self.graph = torch.cuda.CUDAGraph()
+
+    @staticmethod
+    def new_pool(device):
+        del device
+        return torch.cuda.graph_pool_handle()
+
+    def capture(self, fn):
+        """Capture fn() on a side stream: its outputs, written by
+        replay()."""
+        main = torch.cuda.current_stream(self.device)
+        side = _side_stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self.graph.capture_begin(pool=self.pool,
+                                     capture_error_mode="thread_local")
+            try:
+                outs = fn()
+            except BaseException:
+                try:
+                    with warnings.catch_warnings():
+                        # An empty graph, when fn raised at once.
+                        warnings.simplefilter("ignore")
+                        self.graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            self.graph.capture_end()
+        main.wait_stream(side)
+        return outs
+
+    def replay(self):
+        self.graph.replay()
+
+
+class _Entry:
+    """A key's graph, its static inputs and outputs, and the device
+    constants its capture read (alive as long as the graph)."""
+
+    def __init__(self, statics):
+        self.statics = statics
+        self.graph = None
+        self.outputs = None
+        self.consts = None
+
+    def load(self, inputs):
+        for dst, a in zip(self.statics, inputs):
+            copy_into(dst, a)
+
+
+def _signature(a):
+    return tuple(a.shape), _torch_dtype(a)
+
+
+def _torch_dtype(a):
+    if isinstance(a, torch.Tensor):
+        return a.dtype
+    return torch.from_numpy(np.empty(0, np.asarray(a).dtype)).dtype
+
+
+def _same_device(a, b):
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)
+
+
+class CompareGraphs:
+    """The graphs of one comparator, by key. `enabled` False (the CPU, a
+    mesh) runs every compare eagerly. graph_class makes one graph (tests
+    put a stub in its place)."""
+
+    graph_class = CudaGraph
+
+    def __init__(self, device, enabled):
+        self.device = torch.device(device)
+        self.enabled = enabled
+        self._entries = {}
+        self._warm = False       # an eager compare has run
+        self._eager_only = set()
+
+    def keys(self):
+        """The keys that have a graph."""
+        return set(self._entries)
+
+    def run(self, key, fn, inputs, timings=None):
+        """(fn(*inputs on the device), how it ran): fn gives a tuple of
+        device tensors, by the key's graph (module docstring) when
+        enabled, else eagerly; how is CAPTURES, REPLAYS or EAGER. Each
+        input is a host array or a device tensor (a host array and a
+        tensor of one shape and dtype share a key); the outputs are the
+        caller's own. Adds the seconds of a capture to
+        timings["compare_capture"]."""
+        if not self.enabled:
+            return fn(*[self._device(a) for a in inputs]), EAGER
+        key = tuple(key) + tuple(_signature(a) for a in inputs)
+        with _lock:
+            entry, mode = self._entries.get(key), REPLAYS
+            if entry is None and self._warm and \
+                    key not in self._eager_only:
+                entry, mode = self._capture(key, fn, inputs, timings), \
+                    CAPTURES
+            if entry is not None:
+                entry.load(inputs)
+                entry.graph.replay()
+                return tuple(o.clone() for o in entry.outputs), mode
+        out = fn(*[self._device(a) for a in inputs])
+        self._warm = True
+        return out, EAGER
+
+    def _device(self, a):
+        return a if isinstance(a, torch.Tensor) else to_device(a,
+                                                               self.device)
+
+    def _capture(self, key, fn, inputs, timings):
+        """The key's entry, captured; None if the capture gave up."""
+        entry = _Entry([torch.empty(tuple(a.shape), dtype=_torch_dtype(a),
+                                    device=self.device) for a in inputs])
+        entry.load(inputs)
+        cuda = self.device.type == "cuda"
+        pool = _pool(self.device)
+        with spans.timed(timings, "compare_capture"):
+            before = torch.cuda.memory_reserved(self.device) if cuda else 0
+            graph = self.graph_class(self.device,
+                                     pool.open(self.graph_class,
+                                               self.device))
+            try:
+                with devconst.recording() as consts:
+                    outs = graph.capture(lambda: fn(*entry.statics))
+            except devconst.Missing:
+                # The eager run makes it; the key's next use captures.
+                return None
+            except torch.cuda.OutOfMemoryError:
+                self._eager_only.add(key)
+                raise
+            except RuntimeError as e:
+                self._eager_only.add(key)
+                pool.close()
+                if not _warned:
+                    _warned.append(key)
+                    sys.stderr.write("compare graph capture failed (%s); "
+                                     "running that compare eagerly\n"
+                                     % str(e).split("\n", 1)[0])
+                return None
+            if cuda:
+                pool.bytes += max(
+                    0, torch.cuda.memory_reserved(self.device) - before)
+        entry.graph, entry.outputs, entry.consts = graph, tuple(outs), consts
+        self._entries[key] = entry
+        _live.add(self)
+        return entry
+
+    def drop(self):
+        """Release every graph; the keys' next uses capture again."""
+        with _lock:
+            self._entries.clear()
+        _live.discard(self)
+
+
+def drop_all(device):
+    """drop() every comparator's graphs on `device` and close its pool."""
+    device = torch.device(device)
+    with _lock:
+        for graphs in list(_live):
+            if _same_device(graphs.device, device):
+                graphs.drop()
+        _pool(device).close()
+
+
+def pool_bytes(device):
+    """Bytes the graph pool on `device` holds: the allocator counts them
+    as reserved, but only graphs can use them."""
+    return _pool(torch.device(device)).bytes

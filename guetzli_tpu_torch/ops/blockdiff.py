@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from guetzli_tpu_torch import config, consts
+from guetzli_tpu_torch.ops import devconst
 from guetzli_tpu_torch.ops.fp import div, sqrt
 
 # 8-point DFT matrix, split into real and imaginary parts.
@@ -26,6 +27,7 @@ _u = np.arange(8)
 _W = np.exp(-2j * np.pi * np.outer(_u, _u) / 8.0)
 DFT8_RE = np.ascontiguousarray(_W.real.astype(np.float32))
 DFT8_IM = np.ascontiguousarray(_W.imag.astype(np.float32))
+_CSF32 = consts.CSF8X8.astype(np.float32)
 
 _F32 = np.float32
 
@@ -44,17 +46,11 @@ HF_DX = pw_progression_params(11.38708334481672, 14.550189611520716)
 LF_DY = pw_progression_params(0.0, 5.2511644570349185)
 
 
-_TABLES = {}
-
-
 def table_on(lut, device):
     """consts table `lut` (a module-level array) as float32 on `device`,
-    made once."""
-    key = (id(lut), str(device))
-    if key not in _TABLES:
-        _TABLES[key] = torch.as_tensor(np.asarray(lut, dtype=np.float32),
-                                       device=device)
-    return _TABLES[key]
+    made once (ops/devconst.py)."""
+    return devconst.get(("table", id(lut)), device,
+                        lambda: np.asarray(lut, dtype=np.float32))
 
 
 def interpolate(lut, s):
@@ -167,8 +163,8 @@ def fft8x8_squared(blocks):
     """|2-D DFT|^2 of real [..., 8, 8] blocks, flattened [xfreq*8 + yfreq]
     with the global 0.000064 scale (ButteraugliFFTSquared,
     butteraugli.cc:574-597)."""
-    wr = torch.as_tensor(DFT8_RE, device=blocks.device)
-    wi = torch.as_tensor(DFT8_IM, device=blocks.device)
+    wr = devconst.array(DFT8_RE, blocks.device)
+    wi = devconst.array(DFT8_IM, blocks.device)
     a = blocks.transpose(-1, -2)                  # [..., x, y]
     t1r = torch.matmul(wr, a)                     # [..., u, y]
     t1i = torch.matmul(wi, a)
@@ -187,7 +183,7 @@ def block_diff(b0, b1, trials=False):
     ``trials``, axis 0 holds independent trials and the DFTs' matrix
     products run once per trial, each with the shape of a one-trial call
     (a GEMM's algorithm may depend on its row count)."""
-    csf = torch.as_tensor(consts.CSF8X8.astype(np.float32), device=b0.device)
+    csf = devconst.array(_CSF32, b0.device)
     csf0 = float(_F32(consts.CSF8X8[0]))
     diff = b0 - b1
     d2 = diff.reshape(diff.shape[:-1] + (8, 8))

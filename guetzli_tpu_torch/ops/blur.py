@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from guetzli_tpu_torch.ops import devconst
+
 
 @lru_cache(maxsize=None)
 def gauss_taps(sigma: float):
@@ -73,9 +75,22 @@ def upsample_columns(t, step, w):
     from guetzli_tpu_torch.ops.layout import lane_safe
     if not lane_safe():
         return t.repeat_interleave(step, dim=-1)[..., :w]
-    u = torch.as_tensor(_upsample_matrix(t.shape[-1], w, step),
-                        device=t.device)
+    dw = t.shape[-1]
+    u = devconst.get(("upsample_matrix", dw, w, step), t.device,
+                     lambda: _upsample_matrix(dw, w, step))
     return torch.matmul(t, u)
+
+
+def _taps_on(sigma, device):
+    """gauss_taps(sigma)'s taps on `device` (ops/devconst.py)."""
+    return devconst.get(("gauss_taps", sigma), device,
+                        lambda: gauss_taps(sigma)[0])
+
+
+def _border_weights_on(size, sigma, border_ratio, device):
+    """_border_weights on `device` (ops/devconst.py)."""
+    return devconst.get(("blur_border", size, sigma, border_ratio), device,
+                        lambda: _border_weights(size, sigma, border_ratio))
 
 
 def _conv_rows(x, taps, offset, step):
@@ -113,13 +128,11 @@ def blur(channel, sigma: float, border_ratio: float = 0.0,
     nt = x.shape[0]
     lead = x.shape[1:-2]
     h, w = x.shape[-2:]
-    taps, offset = gauss_taps(sigma)
+    _taps, offset = gauss_taps(sigma)
     step = blur_step(sigma)
-    jt = torch.as_tensor(taps, device=dev)
-    scale_x = torch.as_tensor(_border_weights(w, sigma, border_ratio),
-                              device=dev)
-    scale_y = torch.as_tensor(_border_weights(h, sigma, border_ratio),
-                              device=dev)
+    jt = _taps_on(sigma, dev)
+    scale_x = _border_weights_on(w, sigma, border_ratio, dev)
+    scale_y = _border_weights_on(h, sigma, border_ratio, dev)
 
     t = _conv_trials(x.reshape(nt, -1, w), jt, offset, step) * scale_x
     dw = t.shape[-1]
@@ -160,9 +173,9 @@ def blur_dyn(channel, sigma: float, scale_x, scale_y):
     how many images are stacked beside it."""
     lead = channel.shape[:-3]
     nb, h, w = channel.shape[-3:]
-    taps, offset = gauss_taps(sigma)
+    _taps, offset = gauss_taps(sigma)
     step = blur_step(sigma)
-    jt = torch.as_tensor(taps, device=channel.device)
+    jt = _taps_on(sigma, channel.device)
     x = channel.movedim(-3, 0).reshape(nb, -1, w)
     t = _conv_trials(x, jt, offset, step) * scale_x[:, None, :]
     dw = t.shape[-1]

@@ -26,10 +26,12 @@ import torch.nn.functional as F
 
 from guetzli_tpu_torch import config, consts
 from guetzli_tpu_torch.ops import blockdiff as bd
+from guetzli_tpu_torch.ops import devconst
 from guetzli_tpu_torch.ops.blur import blur, blur_dyn
 from guetzli_tpu_torch.ops.fp import div, sqrt
 
 _F32 = np.float32
+_MASK_W = consts.MASK_W.astype(np.float32)
 
 
 def _mhic_mix(y, sqr_max):
@@ -90,10 +92,36 @@ def _idx(a, device):
     return torch.as_tensor(a, dtype=torch.int64, device=device)
 
 
+def _edge_map_consts(h, w, step, dev):
+    """edge_detector_map's per-geometry constants on `dev`: for each of
+    its four corner offsets the step grid's rows [ny, 1] and columns [1,
+    nx] (int64) and their horizontal and vertical validity [ny, nx]
+    (bool), then the normalization [ny, nx] (float32)."""
+    def make():
+        xs = np.arange(w)
+        ys = np.arange(h)
+        h_ok = (xs >= 3) & (xs + 3 < w)
+        v_ok = (ys >= 3) & (ys + 3 < h)
+        px = np.minimum(_res_positions(w, step, 8 - step), w - 8)
+        py = np.minimum(_res_positions(h, step, 8 - step), h - 8)
+        out = []
+        cnt = np.zeros((len(py), len(px)), dtype=np.float32)
+        for oy, ox in ((0, 0), (7, 0), (0, 7), (7, 7)):
+            gy = py + oy
+            gx = px + ox
+            hv = np.repeat(h_ok[gx][None, :], len(py), axis=0)
+            vv = np.repeat(v_ok[gy][:, None], len(px), axis=1)
+            out += [gy.astype(np.int64)[:, None],
+                    gx.astype(np.int64)[None, :], hv, vv]
+            cnt = cnt + hv + vv
+        return tuple(out) + (_F32(consts.EDGE_DETECTOR_WEIGHT) * _F32(8.0)
+                             / cnt,)
+    return devconst.get(("edge_detector_map", h, w, step), dev, make)
+
+
 def edge_detector_map(xyb0, xyb1, step=3):
     """butteraugli.cc:689-738, 1119-1149 -> [ry, rx, 3] res grid."""
     h, w = xyb0.shape[-2:]
-    dev = xyb0.device
     trial_axis = 1 if xyb0.dim() == 4 else None
     pairs = [blur(torch.stack([xyb0[c], xyb1[c]]), s, 0.0, trial_axis)
              for c, s in enumerate(consts.EDGE_DETECTOR_SIGMAS)]
@@ -114,28 +142,15 @@ def edge_detector_map(xyb0, xyb1, step=3):
     hmap = lf_sq(dir_diff(blurred0, -1), dir_diff(blurred1, -1))
     vmap = lf_sq(dir_diff(blurred0, -2), dir_diff(blurred1, -2))
 
-    xs = np.arange(w)
-    ys = np.arange(h)
-    h_ok = (xs >= 3) & (xs + 3 < w)
-    v_ok = (ys >= 3) & (ys + 3 < h)
-    px = np.minimum(_res_positions(w, step, 8 - step), w - 8)
-    py = np.minimum(_res_positions(h, step, 8 - step), h - 8)
-
-    acc = torch.zeros(hmap.shape[:-2] + (len(py), len(px)), device=dev)
-    cnt = np.zeros((len(py), len(px)), dtype=np.float32)
-    for oy, ox in ((0, 0), (7, 0), (0, 7), (7, 7)):
-        gy = py + oy
-        gx = px + ox
-        hv = np.repeat(h_ok[gx][None, :], len(py), axis=0)
-        vv = np.repeat(v_ok[gy][:, None], len(px), axis=1)
-        gyt, gxt = _idx(gy, dev)[:, None], _idx(gx, dev)[None, :]
-        acc = acc + torch.where(torch.as_tensor(hv, device=dev),
-                                hmap[..., gyt, gxt], 0.0)
-        acc = acc + torch.where(torch.as_tensor(vv, device=dev),
-                                vmap[..., gyt, gxt], 0.0)
-        cnt = cnt + hv + vv
-    mul = _F32(consts.EDGE_DETECTOR_WEIGHT) * _F32(8.0) / cnt
-    out = (acc * torch.as_tensor(mul, device=dev)).movedim(0, -1)
+    consts_ = _edge_map_consts(h, w, step, xyb0.device)
+    mul = consts_[-1]
+    acc = torch.zeros(hmap.shape[:-2] + tuple(mul.shape),
+                      device=xyb0.device)
+    for k in range(4):
+        gyt, gxt, hv, vv = consts_[4 * k:4 * k + 4]
+        acc = acc + torch.where(hv, hmap[..., gyt, gxt], 0.0)
+        acc = acc + torch.where(vv, vmap[..., gyt, gxt], 0.0)
+    out = (acc * mul).movedim(0, -1)
     return _pad_to_res(out, w, h, step)
 
 
@@ -144,12 +159,13 @@ def block_diff_map(xyb0, xyb1, step=3):
     h, w = xyb0.shape[-2:]
     lead = xyb0.shape[1:-2]
     n = len(lead)
-    dev = xyb0.device
     px = np.minimum(_res_positions(w, step, 8 - step - 1), w - 8)
     py = np.minimum(_res_positions(h, step, 8 - step - 1), h - 8)
     ny, nx = len(py), len(px)
-    yy = _idx((py[:, None] + np.arange(8)[None, :]).ravel(), dev)
-    xx = _idx((px[:, None] + np.arange(8)[None, :]).ravel(), dev)
+    yy, xx = devconst.get(
+        ("block_diff_map", h, w, step), xyb0.device,
+        lambda: tuple((p[:, None] + np.arange(8)[None, :]).ravel()
+                      for p in (py, px)), torch.int64)
 
     def windows(img):                      # [3, H, W] -> [ny, nx, 3, 64]
         wins = img[..., yy, :][..., xx].reshape(
@@ -165,7 +181,6 @@ def block_diff_map(xyb0, xyb1, step=3):
 def edge_detector_low_freq(xyb0, xyb1, ac_map, step=3):
     """butteraugli.cc:1151-1205; adds into ac_map at x-offset 8//step."""
     h, w = xyb0.shape[-2:]
-    dev = xyb0.device
     both = blur(torch.stack([xyb0, xyb1]), consts.EDGE_LF_SIGMA, 0.0,
                 2 if xyb0.dim() == 4 else None)
     e = both[1] - both[0]
@@ -173,18 +188,19 @@ def edge_detector_low_freq(xyb0, xyb1, ac_map, step=3):
     xs = _res_positions(w, step, 8)
     if len(ys) == 0 or len(xs) == 0:
         return ac_map
+    # Rows ys, ys + 8, ys + 6 [n, 1]; columns xs, xs + 8, xs + 6, xs - 6
+    # (clamped at 0) [1, n]; x < 8 [1, 1, n].
+    y0, y8, y6, x0, x8, x6, xm6, near = devconst.get(
+        ("edge_detector_low_freq", h, w, step), xyb0.device,
+        lambda: tuple(ys[:, None] + d for d in (0, 8, 6))
+        + tuple(xs[None, :] + d for d in (0, 8, 6))
+        + (np.maximum(xs - 6, 0)[None, :], (xs < 8)[None, None, :]))
 
-    def shifted(dy, dx):
-        return e[..., _idx(ys + dy, dev)[:, None],
-                 _idx(xs + dx, dev)[None, :]]
-
-    base = shifted(0, 0)
-    diffs = [base - shifted(0, 8), base - shifted(8, 0),
-             base - shifted(6, 6)]
+    base = e[..., y0, x0]
+    diffs = [base - e[..., y0, x8], base - e[..., y8, x0],
+             base - e[..., y6, x6]]
     # Direction 3 reaches x-6; zero where x < 8.
-    far = base - e[..., _idx(ys + 6, dev)[:, None],
-                   _idx(np.maximum(xs - 6, 0), dev)[None, :]]
-    near = torch.as_tensor(xs < 8, device=dev)[None, None, :]
+    far = base - e[..., y6, xm6]
     diffs.append(torch.where(near, torch.zeros_like(base), far))
 
     per_k = [torch.stack(bd.xyb_diff_low_freq_squared(d[0], d[1], d[2]))
@@ -248,9 +264,8 @@ def mask(xyb0, xyb1):
         mc = average5x5(m[c])
         mc = min_square_val(mc, 4, 0)
         chans.append(blur(mc, consts.MASK_SIGMAS[c], 0.0, trial_axis))
-    p = torch.stack(chans) * torch.as_tensor(
-        consts.MASK_W.astype(np.float32), device=xyb0.device).reshape(
-            (3,) + (1,) * (xyb0.dim() - 1))
+    p = torch.stack(chans) * devconst.array(_MASK_W, xyb0.device).reshape(
+        (3,) + (1,) * (xyb0.dim() - 1))
     g2 = float(_F32(consts.K_GLOBAL_SCALE * consts.K_GLOBAL_SCALE))
     mask_out = torch.stack([bd.mask_lut("x", p[0]), bd.mask_lut("y", p[1]),
                             bd.mask_lut("b", p[2])]) * g2
@@ -263,9 +278,10 @@ def mask(xyb0, xyb1):
 def combine_channels(mask_xyb, mask_dc, dc_map, ac_map, edge_map, h, w,
                      step=3):
     """butteraugli.cc:1207-1231 -> res-grid diffmap [ny, nx]."""
-    dev = mask_xyb.device
-    ry = _idx(_res_positions(h, step, 8 - step) + 3, dev)
-    rx = _idx(_res_positions(w, step, 8 - step) + 3, dev)
+    ry, rx = devconst.get(
+        ("combine_channels", h, w, step), mask_xyb.device,
+        lambda: (_res_positions(h, step, 8 - step) + 3,
+                 _res_positions(w, step, 8 - step) + 3), torch.int64)
     msel = mask_xyb[..., ry[:, None], rx[None, :]]
     dsel = mask_dc[..., ry[:, None], rx[None, :]]
     ny, nx = len(ry), len(rx)
@@ -571,9 +587,8 @@ def mask_dyn(xyb0, xyb1, w, h, sc):
         mc = torch.where(vm, average5x5(m[c]), float("inf"))
         mc = torch.where(vm, min_square_val(mc, 4, 0), 0.0)
         chans.append(blur_dyn(mc, consts.MASK_SIGMAS[c], *sc["mask%d" % c]))
-    p = torch.stack(chans) * torch.as_tensor(
-        consts.MASK_W.astype(np.float32), device=xyb0.device)[:, None,
-                                                               None, None]
+    p = torch.stack(chans) * devconst.array(_MASK_W, xyb0.device)[
+        :, None, None, None]
     g2 = float(_F32(consts.K_GLOBAL_SCALE * consts.K_GLOBAL_SCALE))
     mask_out = torch.stack([bd.mask_lut("x", p[0]), bd.mask_lut("y", p[1]),
                             bd.mask_lut("b", p[2])]) * g2

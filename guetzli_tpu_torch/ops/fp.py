@@ -2,6 +2,8 @@
 
 import torch
 
+from guetzli_tpu_torch.ops import devconst
+
 
 def div(a, b):
     """a / b as one correctly rounded division, on the CPU and the card.
@@ -10,11 +12,12 @@ def div(a, b):
     and, on the card, ``tensor / number`` as ``tensor * (1 / number)``: two
     roundings, which the opsin gamma's recursion amplifies to ~4e-5
     relative. Given as a 0-dim tensor, the number takes part in a true
-    division instead, as in the JAX package and the CUDA kernels."""
+    division instead, as in the JAX package and the CUDA kernels (made
+    once per value and device: ops/devconst.py)."""
     if not isinstance(a, torch.Tensor):
-        a = torch.tensor(a, dtype=b.dtype, device=b.device)
+        a = devconst.scalar(a, b.dtype, b.device)
     if not isinstance(b, torch.Tensor):
-        b = torch.tensor(b, dtype=a.dtype, device=a.device)
+        b = devconst.scalar(b, a.dtype, a.device)
     return torch.div(a, b)
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from guetzli_tpu_torch import config, consts
+from guetzli_tpu_torch.ops import devconst
 
 _IDCT = consts.IDCT_MATRIX.astype(np.int32)   # [x, u]
 
@@ -30,7 +31,7 @@ _SRGB_POW = float(np.float32(2.4))
 
 
 def _idct_matrix(device):
-    return torch.as_tensor(_IDCT, device=device)
+    return devconst.array(_IDCT, device)
 
 
 def idct_blocks(coeffs):

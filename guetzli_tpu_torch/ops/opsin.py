@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from guetzli_tpu_torch import consts
+from guetzli_tpu_torch.ops import devconst
 from guetzli_tpu_torch.ops.blur import blur, blur_dyn, blur_matrix
 from guetzli_tpu_torch.ops.diffmap import _vmask
 from guetzli_tpu_torch.ops.fp import div
@@ -85,8 +86,9 @@ def opsin_dynamics_blocks(rgb_blocks):
     """Per-tile opsin for [..., 3, 8, 8] tiles: the blur stays inside the
     tile (OpsinDynamicsImage at xsize=ysize=8, as SwitchBlock calls it,
     butteraugli_comparator.cc:85-111). Returns [..., 3, 8, 8]."""
-    bm = torch.as_tensor(blur_matrix(8, consts.OPSIN_SIGMA, 0.0),
-                         device=rgb_blocks.device)
+    bm = devconst.get(("blur_matrix", 8, consts.OPSIN_SIGMA),
+                      rgb_blocks.device,
+                      lambda: blur_matrix(8, consts.OPSIN_SIGMA, 0.0))
     blurred = torch.matmul(torch.matmul(bm, rgb_blocks), bm.T)
     x = rgb_blocks.movedim(-3, 0)
     return opsin_from_blurred(x, blurred.movedim(-3, 0)).movedim(0, -3)

@@ -19,6 +19,7 @@ import torch
 
 from guetzli_tpu_torch import consts
 from guetzli_tpu_torch.ops import blockdiff as bd
+from guetzli_tpu_torch.ops import devconst
 from guetzli_tpu_torch.ops import fp
 from guetzli_tpu_torch.ops import image as img_ops
 from guetzli_tpu_torch.ops.blur import blur_matrix
@@ -44,7 +45,7 @@ def _mat_axis(mat, x, axis):
     or float32): all 64 products at once, each rounded on its own, then
     summed over j in order, ((p0 + p1) + p2) + ..."""
     xm = x.movedim(axis, 0)                        # [8(j), ...]
-    m = torch.as_tensor(np.asarray(mat), dtype=x.dtype, device=x.device)
+    m = devconst.array(mat, x.device, x.dtype)
     prod = m.view((8, 8) + (1,) * (xm.dim() - 1)) * xm.unsqueeze(0)
     acc = prod[:, 0]
     for j in range(1, 8):
@@ -164,7 +165,7 @@ def block_diff_lanes(b0, b1, exact_lut=None):
 
     bavg = (b0 + b1) * 0.5
     bhd = (b0 - b1) * 0.5
-    d = torch.as_tensor(CSF_D, device=b0.device)[..., None]
+    d = devconst.array(CSF_D, b0.device)[..., None]
 
     def wsum(x):                                   # [8, 8, N] -> [N]
         return _sum_seq(_sum_seq(d * x, 0), 0)

@@ -11,6 +11,12 @@ plane at once.
 import numpy as np
 import torch
 
+from guetzli_tpu_torch.ops import devconst
+
+_X16 = np.arange(16)
+_CX16 = (_X16 >> 1) + 1
+_CX16_2 = (_X16 >> 1) + 1 + (_X16 & 1) * 2 - 1
+
 
 def fancy_upsample(sub, w, h, y0=0, hs=None, s0=0):
     """x16 subsampled plane [..., hs, ws] int32 -> full-res x16 pixels
@@ -72,23 +78,24 @@ def neighborhoods_10x10(sub, bw, bh, by0=0, hs=None, s0=0):
     ws = sub.shape[-1]
     if hs is None:
         hs = sub.shape[-2]
-    bx = np.tile(np.arange(bw), bh)
-    by = np.repeat(np.arange(by0, by0 + bh), bw)
-    ix = np.arange(-1, 9)
-    gx = np.clip(bx[:, None] * 8 + ix[None, :], 0, ws - 1)   # [NB, 10]
-    gy = np.clip(by[:, None] * 8 + ix[None, :], 0, hs - 1) - s0
-    gx = torch.as_tensor(gx, device=sub.device)
-    gy = torch.as_tensor(gy, device=sub.device)
+
+    def make():
+        bx = np.tile(np.arange(bw), bh)
+        by = np.repeat(np.arange(by0, by0 + bh), bw)
+        ix = np.arange(-1, 9)
+        gx = np.clip(bx[:, None] * 8 + ix[None, :], 0, ws - 1)  # [NB, 10]
+        gy = np.clip(by[:, None] * 8 + ix[None, :], 0, hs - 1) - s0
+        return gx, gy
+    gx, gy = devconst.get(("neighborhoods_10x10", bw, bh, by0, ws, hs, s0),
+                          sub.device, make)
     return sub[..., gy[:, :, None], gx[:, None, :]]
 
 
 def upsample_16x16_from_neighborhood(neigh):
     """[..., 10, 10] x16 subsampled neighborhoods -> [..., 16, 16] x16
     full-res pixels of the block's own 16x16 area."""
-    x = np.arange(16)
-    cx = torch.as_tensor((x >> 1) + 1, device=neigh.device)
-    cx2 = torch.as_tensor((x >> 1) + 1 + (x & 1) * 2 - 1,
-                          device=neigh.device)
+    cx = devconst.array(_CX16, neigh.device)
+    cx2 = devconst.array(_CX16_2, neigh.device)
     r1 = neigh[..., cx, :]
     r2 = neigh[..., cx2, :]
     return (9 * r1[..., cx] + 3 * r1[..., cx2] + 3 * r2[..., cx]

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from guetzli_tpu_torch import comparator as cmp_mod
-from guetzli_tpu_torch import config, runtime, spans
+from guetzli_tpu_torch import compare_graphs, config, runtime, spans
 from guetzli_tpu_torch.search import zeroing
 from guetzli_tpu_torch.search.processor import QuantMatrixGenerator
 
@@ -162,8 +162,10 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
     profiler each phase and each back-end round ("lockstep_round") is a
     "phase.<name>" range too (spans.py). `counters`, a dict, accumulates
     "compares" (the comparators' whole-image compares, a wave's trials
-    each), "batched" (those run by the CompareBatcher) and "flushes" (its
-    stacked compares).
+    each), "batched" (those run by the CompareBatcher), "flushes" (its
+    stacked compares) and the comparators' compare_graph_captures,
+    compare_graph_replays and compare_eager (one per dispatch:
+    compare_graphs.py).
 
     Images under 32 pixels, JPEGs the search does not take (grayscale,
     CMYK, 4:2:2, ...) and qualities below 84 go to the serial encoder. An
@@ -292,7 +294,9 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
         for key, n in (("compares", sum(c["proc"].comparator.compares
                                         for c in ctxs)),
                        ("batched", batcher.rows),
-                       ("flushes", batcher.flushes)):
+                       ("flushes", batcher.flushes)) + tuple(
+                (k, sum(c["proc"].comparator.counters.get(k, 0)
+                        for c in ctxs)) for k in compare_graphs.COUNTERS):
             counters[key] = counters.get(key, 0) + n
     return [(name, out) for (name, _data), out in zip(inputs, results)]
 

@@ -49,8 +49,12 @@ def is_sticky(e) -> bool:
 
 
 def release_memory(device, what):
-    """The first step of a recovery: say so on stderr and return the
-    allocator's cached blocks to the card."""
+    """The first step of a recovery: say so on stderr, drop the compare
+    graphs on the device (compare_graphs.py; their pools hold memory
+    only they can use, and the next compares capture again) and return
+    the allocator's cached blocks to the card."""
+    from guetzli_tpu_torch import compare_graphs
     sys.stderr.write("CUDA out of memory during %s; recovering\n" % what)
+    compare_graphs.drop_all(device)
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()

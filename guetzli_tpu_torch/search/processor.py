@@ -1238,8 +1238,11 @@ def process_rgb(params: Params, rgb, w, h, stats: ProcessStats = None,
 
 def _comparator(rgb, w, h, params, stats, device, mesh):
     """The image's Comparator, its compare spans (compare_dispatch,
-    compare_wait) charged to stats.timings."""
+    compare_wait, compare_capture) charged to stats.timings and its
+    dispatch counters (compare_graph_captures, compare_graph_replays,
+    compare_eager) to stats.counters."""
     comparator = Comparator(rgb, w, h, params.butteraugli_target, device,
                             mesh=mesh)
     comparator.timings = stats.timings
+    comparator.counters = stats.counters
     return comparator

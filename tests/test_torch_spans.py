@@ -118,12 +118,12 @@ def test_a_deferred_launch_is_charged_at_its_resolve(monkeypatch):
     assert isinstance(handle, cmp_mod.DeferredCompare)
     assert walls == {}
     slow = 0.3
-    real = cmp_mod.Comparator.dispatch_compare
+    real = cmp_mod.Comparator._compare_weights
 
-    def slowed(self, img):
+    def slowed(self, img, args):
         time.sleep(slow)
-        return real(self, img)
-    monkeypatch.setattr(cmp_mod.Comparator, "dispatch_compare", slowed)
+        return real(self, img, args)
+    monkeypatch.setattr(cmp_mod.Comparator, "_compare_weights", slowed)
     t0 = time.time()
     (d, w4), = cmp_mod.fetch_compare_many([comp], [handle])
     wall = time.time() - t0
