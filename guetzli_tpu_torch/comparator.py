@@ -798,9 +798,12 @@ class Comparator:
     # its peak, rounded up from the largest measured: 888-899 B on the two
     # mosaics (4:4:4 and 4:2:0, waves of 4 and 8), 900-957 B at
     # photo_mosaic1 tiled 2x2 (5.24 MPix) and 1,070 B per bucket pixel
-    # there on its bucket (2944x1920), on an NVIDIA H100 80GB HBM3 at
-    # 700 W (chip_smoke.py's route phase; PERF.md).
-    _QUANT_TRIAL_BYTES_PER_PIXEL = 1152
+    # there on its bucket (2944x1920) (chip_smoke.py's route phase); at
+    # 3072x2048 (6.29 MPix) a wave's peak is ~690 B a pixel plus ~730 B a
+    # trial, 1,413-1,425 B a trial in a wave of one, 1,071-1,077 B in a
+    # wave of two, 958-962 B in one of three; on an NVIDIA H100 80GB
+    # HBM3 at 700 W (PERF.md).
+    _QUANT_TRIAL_BYTES_PER_PIXEL = 1472
     # The share of the card's free memory a wave may take.
     _QUANT_WAVE_MEMORY_SHARE = 0.5
 
@@ -818,11 +821,18 @@ class Comparator:
                     - torch.cuda.memory_allocated(self.device)
                     - compare_graphs.pool_bytes(self.device))
         g = self.geom
-        per_trial = ((g.wp * g.hp if g else self.width * self.height)
-                     * self._QUANT_TRIAL_BYTES_PER_PIXEL)
-        cap = max(1, int(free * self._QUANT_WAVE_MEMORY_SHARE // per_trial))
-        sizes = tuple(s for s in self._QUANT_BATCH_SIZES if s <= cap)
-        return sizes or (min(cap, self._QUANT_BATCH_SIZES[0]),)
+        return self.wave_sizes(
+            free, (g.wp * g.hp if g else self.width * self.height)
+            * self._QUANT_TRIAL_BYTES_PER_PIXEL)
+
+    @classmethod
+    def wave_sizes(cls, free, per_trial):
+        """The wave sizes for `free` bytes of the card when one trial
+        takes `per_trial` bytes: those of JAX's (4, 8) that fit in the
+        wave's share of `free`, else the number that fits, at least 1."""
+        cap = max(1, int(free * cls._QUANT_WAVE_MEMORY_SHARE // per_trial))
+        sizes = tuple(s for s in cls._QUANT_BATCH_SIZES if s <= cap)
+        return sizes or (min(cap, cls._QUANT_BATCH_SIZES[0]),)
 
     @_dispatches
     def dispatch_quant_batch(self, base, qs):

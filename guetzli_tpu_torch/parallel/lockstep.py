@@ -163,9 +163,10 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
     "phase.<name>" range too (spans.py). `counters`, a dict, accumulates
     "compares" (the comparators' whole-image compares, a wave's trials
     each), "batched" (those run by the CompareBatcher), "flushes" (its
-    stacked compares) and the comparators' compare_graph_captures,
+    stacked compares), the comparators' compare_graph_captures,
     compare_graph_replays and compare_eager (one per dispatch:
-    compare_graphs.py).
+    compare_graphs.py) and the searches' quant_waves, quant_wave_trials,
+    oom_recoveries and return_memory_calls (search/processor.py).
 
     Images under 32 pixels, JPEGs the search does not take (grayscale,
     CMYK, 4:2:2, ...) and qualities below 84 go to the serial encoder. An
@@ -181,9 +182,9 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
     from guetzli_tpu_torch.device import resolve
     from guetzli_tpu_torch.io.png import read_png
     from guetzli_tpu_torch.search import state as st
-    from guetzli_tpu_torch.search.processor import (Params, Processor,
-                                                    ProcessStats, _copy_jpeg,
-                                                    _is_grayscale,
+    from guetzli_tpu_torch.search.processor import (SEARCH_COUNTERS, Params,
+                                                    Processor, ProcessStats,
+                                                    _copy_jpeg, _is_grayscale,
                                                     decode_jpeg_to_rgb)
     dev = resolve(device)
     target = consts.butteraugli_score_for_quality(quality)
@@ -296,7 +297,10 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
                        ("batched", batcher.rows),
                        ("flushes", batcher.flushes)) + tuple(
                 (k, sum(c["proc"].comparator.counters.get(k, 0)
-                        for c in ctxs)) for k in compare_graphs.COUNTERS):
+                        for c in ctxs)) for k in compare_graphs.COUNTERS) \
+                + tuple((k, sum(c["proc"].stats.counters.get(k, 0)
+                                for c in ctxs))
+                        for k in SEARCH_COUNTERS):
             counters[key] = counters.get(key, 0) + n
     return [(name, out) for (name, _data), out in zip(inputs, results)]
 

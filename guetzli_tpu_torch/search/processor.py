@@ -102,6 +102,20 @@ class ProcessStats:
             sys.stderr.write("  " + row + "\n")
 
 
+# Host memory returns of a large encode (return_memory): every 8th
+# back-end iteration from this many blocks (1.05 MPix), and once after a
+# zeroing pass whose blocks' 192 coefficients take this many bytes
+# (5.59 MPix).
+RETURN_MEMORY_BLOCKS = 1 << 14
+RETURN_MEMORY_PASS_BYTES = 16 << 20
+# The spans every encode's timings hold from its start, at 0.0 until
+# they run: a healthy large encode reads 0 for "recover".
+ENCODE_SPANS = ("return_memory", "recover")
+# ProcessStats.counters the corpus driver sums over its images.
+SEARCH_COUNTERS = ("quant_waves", "quant_wave_trials", "oom_recoveries",
+                   "return_memory_calls")
+
+
 def return_memory(collect=True):
     """Hand freed host memory back to the OS: a garbage collection (with
     `collect`) and glibc's malloc_trim, which returns its arenas' free
@@ -242,6 +256,8 @@ class Processor:
         self.comparator: Comparator = comparator
         self.stats = stats
         self.final = GuetzliOutput()
+        for name in ENCODE_SPANS if stats is not None else ():
+            stats.timings.setdefault(name, 0.0)
 
     def output_jpeg(self, jpg, dc_histograms=None,
                     ac_histograms=None) -> bytes:
@@ -276,9 +292,24 @@ class Processor:
             except runtime.RECOVERABLE:
                 if attempt == runtime.ATTEMPTS - 1:
                     raise
-                runtime.release_memory(self.comparator.device, "a compare")
-                self.comparator.recover_device_state()
+                self.recover("a compare")
                 pending = None
+
+    def recover(self, what):
+        """The recovery from a recoverable device error during `what`:
+        free the device's memory and rebuild the comparator's device
+        state, under the "recover" span, counted as oom_recoveries."""
+        with self.stats.timed("recover"):
+            runtime.release_memory(self.comparator.device, what)
+            self.comparator.recover_device_state()
+        self.stats.inc("oom_recoveries")
+
+    def return_memory(self, collect=True):
+        """return_memory(collect) under the "return_memory" span, counted
+        as return_memory_calls."""
+        with self.stats.timed("return_memory"):
+            return_memory(collect)
+        self.stats.inc("return_memory_calls")
 
     def _compare(self, img: st.CoeffImage):
         d = self._recoverable(
@@ -529,11 +560,11 @@ class Processor:
         self.comparator.finish_block_comparisons()
         nb = len(offsets) - 1
         del blocks, orig, aux
-        if nb * 192 >= 16 << 20:
+        if nb * 192 >= RETURN_MEMORY_PASS_BYTES:
             # The pass's inputs and frozen state are dead once the CSR
             # exists; at 8 MPix they are hundreds of MB that would sit in
             # RSS through the back end (JAX processor.py:642-654).
-            return_memory()
+            self.return_memory()
         with self.stats.timed("back_end"):
             self.select_frequency_back_end(
                 jpg, img, comp_mask, target_mul, stop_early,
@@ -604,9 +635,7 @@ class Processor:
                         comp.distmap = dmap
                         result = (d, w4)
                     except runtime.RECOVERABLE:
-                        runtime.release_memory(comp.device,
-                                               "a pipelined fetch")
-                        comp.recover_device_state()
+                        self.recover("a pipelined fetch")
                         result = self._recoverable(
                             lambda: comp.replay(pending), comp.fetch_compare)
                 msg = gen.send(result)
@@ -799,11 +828,12 @@ class Processor:
                             ac_histograms[:ncomp_out0])
                     else:
                         encoded = self.output_jpeg(jpg_out)
-                if nb >= 1 << 14 and self.stats.counters["iters"] % 8 == 0:
+                if (nb >= RETURN_MEMORY_BLOCKS
+                        and self.stats.counters["iters"] % 8 == 0):
                     # Multi-MPix flip loops churn tens of MB of numpy per
                     # iteration, which glibc keeps in its arenas (JAX
                     # processor.py:1024-1031).
-                    return_memory(collect=False)
+                    self.return_memory(collect=False)
                 self.stats.log(
                     "Iter %2d: (%d) %s Coeffs[%d/%d] Blocks[%d/%d/%d] "
                     "ValThres[%.4f] Out[%7d] EstErr[%.2f%%]",
