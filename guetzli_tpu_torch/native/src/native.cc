@@ -604,6 +604,10 @@ extern "C" {
 // the device-side sparse-scatter upload consumes these directly, which
 // replaces the caller's numpy reconstruction from last_indexes deltas
 // (~0.3-0.5 s/iteration of backend_dispatch at 8 MPix).
+//
+// The entropy codes are rebuilt (every 10th flip) and the size estimated
+// only where a value read later depends on them; *out_rebuilds receives
+// the number of rebuilds run.
 int64_t gt_backend_flips(
     int32_t* const* comp_coeffs, const int32_t* quant,
     const int16_t* const* jpg_coeffs, const int32_t* jpg_quant,
@@ -617,10 +621,12 @@ int64_t gt_backend_flips(
     int64_t* ac_histogram_size, int ncomp, int64_t nb,
     int64_t* out_changed_coeffs, double* out_val_threshold,
     int64_t* out_changed_blocks,
-    int32_t* out_flip_b, int32_t* out_flip_idx, int32_t* out_flip_val) {
+    int32_t* out_flip_b, int32_t* out_flip_idx, int32_t* out_flip_val,
+    int64_t* out_rebuilds) {
   std::vector<uint8_t> changed(nb, 0);
   int64_t changed_blocks = 0;
   int64_t changed_coeffs = 0;
+  int64_t rebuilds = 0;
   double val_threshold = 0.0;
   int64_t est = prev_size;
   for (int64_t i = 0; i < order_n; ++i) {
@@ -654,17 +660,30 @@ int64_t gt_backend_flips(
     if (!changed[b]) { changed[b] = 1; changed_blocks++; }
     val_threshold = order_vals[i];
     changed_coeffs++;
-    if (i % 10 == 0) {
+    // The stop test reads est only once changed_coeffs (i + 1) passes
+    // min_coeffs_to_change, and est is returned after the last flip
+    // (i + 1 == order_n). A rebuild at i is read by the flips i..i+9
+    // until the next one: the test reads it if i + 9 >= min (i + 10 >
+    // min), the caller keeps it if the order ends first (i + 10 >=
+    // order_n). The loop stops at a flip the test reads or at the last,
+    // so every rebuild whose codes reach an output still runs, on the
+    // same histograms.
+    if (i % 10 == 0 &&
+        (i + 10 > min_coeffs_to_change || i + 10 >= order_n)) {
       *ac_histogram_size =
           compute_entropy_codes(ac_histograms, ncomp, ac_depths);
+      rebuilds++;
     }
-    est = jpg_header_size + dc_size + *ac_histogram_size +
-          entropy_coded_data_size(ac_histograms, ac_depths, ncomp);
+    if (changed_coeffs > min_coeffs_to_change || i + 1 == order_n) {
+      est = jpg_header_size + dc_size + *ac_histogram_size +
+            entropy_coded_data_size(ac_histograms, ac_depths, ncomp);
+    }
     if (changed_coeffs > min_coeffs_to_change &&
         std::llabs(est - prev_size) > (int64_t)min_size_delta) {
       break;
     }
   }
+  *out_rebuilds = rebuilds;
   *out_changed_coeffs = changed_coeffs;
   *out_val_threshold = val_threshold;
   *out_changed_blocks = changed_blocks;

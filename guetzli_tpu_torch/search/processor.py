@@ -113,7 +113,7 @@ RETURN_MEMORY_PASS_BYTES = 16 << 20
 ENCODE_SPANS = ("return_memory", "recover")
 # ProcessStats.counters the corpus driver sums over its images.
 SEARCH_COUNTERS = ("quant_waves", "quant_wave_trials", "oom_recoveries",
-                   "return_memory_calls")
+                   "return_memory_calls", "flips", "flip_code_rebuilds")
 
 
 def return_memory(collect=True):
@@ -942,6 +942,7 @@ class Processor:
         out_coeffs = ctypes.c_int64(0)
         out_thresh = ctypes.c_double(0.0)
         out_blocks = ctypes.c_int64(0)
+        out_rebuilds = ctypes.c_int64(0)
         # Exact flip triplets, emitted by the loop itself (capacity = the
         # order length, an upper bound on flips this iteration).
         flip_b = np.empty(len(order_blocks), dtype=np.int32)
@@ -980,11 +981,16 @@ class Processor:
             ctypes.byref(out_blocks),
             flip_b.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
             flip_idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            flip_val.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+            flip_val.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            ctypes.byref(out_rebuilds))
         last_indexes[:] = li
         for c in range(ncomp):
             ac_histograms[c][:] = histo[c]
         m = int(out_coeffs.value)
+        # The loop's entropy-code rebuilds against its flips: a full
+        # rebuild schedule runs one per 10 flips.
+        self.stats.inc("flips", m)
+        self.stats.inc("flip_code_rebuilds", int(out_rebuilds.value))
         return (int(est), m, float(out_thresh.value),
                 int(out_blocks.value), depths, int(hist_size.value),
                 (flip_b[:m], flip_idx[:m], flip_val[:m]))

@@ -151,6 +151,21 @@ def test_resolve_disables_tf32(monkeypatch):
     assert torch.backends.cudnn.benchmark is False
 
 
+def test_resolve_cuda_one_host_thread(monkeypatch):
+    """On the card the host's tensor copies run on one intra-op thread;
+    the CPU device keeps the caller's pool."""
+    n = torch.get_num_threads()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    try:
+        torch.set_num_threads(3)
+        assert device.resolve("cpu").type == "cpu"
+        assert torch.get_num_threads() == 3
+        assert device.resolve("cuda").type == "cuda"
+        assert torch.get_num_threads() == 1
+    finally:
+        torch.set_num_threads(n)
+
+
 def test_cli_module_runs(tmp_path):
     """python -m guetzli_tpu_torch.cli is an entry point."""
     r = subprocess.run([sys.executable, "-m", "guetzli_tpu_torch.cli"],
