@@ -47,14 +47,12 @@ counts set to 0 just before it and read just after:
     the same matrices, bit for bit, with its wall and peak device memory
     per trial and pixel; the wave at photo_mosaic1 tiled 2x2 (5.24 MPix),
     exact and on its bucket;
-    a seeded wave of sparse coefficient deltas, whole and in chunks,
+    and a seeded wave of sparse coefficient deltas, whole and in chunks,
     against a full compare of the same host image (distance and weights
-    bit for bit); then both mosaics encoded with every route knob off,
-    with the auto defaults and with each knob forced on alone, in turns
-    over ROUTE_ROUNDS rounds (2 since the padded phase came, 3 before),
-    each giving the default path's bytes, with the select_quant_matrix,
-    backend_dispatch, backend_fetch and back_end walls and their medians;
-  * the corpus path, with the quant tree: ``corpus_cli.main`` with 6
+    bit for bit). The encodes above run this route: the search takes it
+    wherever the comparator supports it, which is everywhere but under a
+    mesh;
+  * the corpus path: ``corpus_cli.main`` with 6
     threads over six images (three PNGs, three 4:2:0 JPEGs), each output
     equal to its serial encode_bytes bytes and within 2% of golden, with
     exactly one launch of each of B, B', B'', A, A' and A'' for the whole
@@ -63,8 +61,8 @@ counts set to 0 just before it and read just after:
     (its pool only decodes; every compare from the calling thread). It
     logs the corpus wall, images/min, MPix/s,
     the sum of the serial walls, the phase walls, the CTAs of each
-    launch, and the peak device memory and RSS. It runs the default
-    route, whose geometry (config.auto("pad")) is the serial encodes';
+    launch, and the peak device memory and RSS. It runs at exact
+    geometry, as the serial encodes do;
   * the padded bucket geometry and the CompareBatcher: a padded compare
     of each mosaic against the exact one (ms, the diffmap at the valid
     pixels); one stacked compare of the 10 images of bucket 128x96 (PNGs
@@ -76,11 +74,11 @@ counts set to 0 just before it and read just after:
     phase_e2e's five encodes with the padding forced on (golden band,
     distance at or below target, every greedy kernel and compare
     launched), then both mosaics with the padding on and off in turns,
-    the paired walls behind config.CUDA_AUTO["pad"]; and three corpora
-    through the lockstep corpus driver, padding on and off in turns,
-    medians of 2: the 17 images of buckets 128x96 and 160x128 as 4:2:0
-    JPEGs (auto route) and as PNGs (sparse off), and the corpus phase's
-    six images of different sizes (auto route), with the compares
+    the paired walls behind GUETZLI_TPU_PAD's default (off); and three
+    corpora through the lockstep corpus driver, padding on and off in
+    turns, medians of 2: the 17 images of buckets 128x96 and 160x128 as
+    4:2:0 JPEGs and as PNGs, and the corpus phase's six images of
+    different sizes, with the compares
     through the batcher and the rows per stacked compare, the padded
     corpus's bytes equal to each image's serial padded encode, and one
     launch of each greedy kernel and compare of its passes in the first
@@ -111,7 +109,7 @@ counts set to 0 just before it and read just after:
     bit for bit (B, B', B'' both rails over the whole pass), each timed
     beside its closed form, and kernel C unmoved by the knob; bees96x64
     and bees_d-420 encoded under each of KNOB_SETTINGS (golden band,
-    distance at or below target; the route and opt-out settings with
+    distance at or below target; the route settings and NO_NATIVE with
     the default bytes), with each encode's wall, backend_serialize and
     zeroing_loop walls and launches; photo_mosaic1's 4:4:4 pass through
     the staged and full-batch zeroing routes against the fused kernel
@@ -179,17 +177,9 @@ BUCKET_160x128 = ["bees_a", "bees_b", "bees_f", "bees_h", "bees_up",
                   "grad3", "stripes1"]
 
 # The route phase: the JAX package's accelerator search route (quant-tree
-# waves, quant speculation, sparse back-end deltas, the back-end
-# pipeline) on the two mosaics. Each encode runs with every route knob
-# forced off, with the auto defaults (config.CUDA_AUTO), and with one
-# knob forced on, in turns over ROUTE_ROUNDS rounds.
+# waves, sparse back-end deltas) on the two mosaics.
 ROUTE = [("tests/corpus/photo_mosaic1.png", 393811),
          ("tests/corpus/photo_mosaic1-420.jpg", 348714)]
-ROUTE_KNOBS = ("TREE_QUANT", "SPECULATE", "SPARSE", "PIPELINE")
-ROUTE_CONFIGS = ([("off", dict.fromkeys(ROUTE_KNOBS, "0")), ("auto", {})]
-                 + [(k.lower(), dict(dict.fromkeys(ROUTE_KNOBS, "0"),
-                                     **{k: "1"})) for k in ROUTE_KNOBS])
-ROUTE_ROUNDS = 2
 # Seed and size of the route phase's sparse delta wave.
 SPARSE_SEED = 9
 SPARSE_FLIPS = 20000
@@ -215,7 +205,7 @@ MESH_TIMEOUT = 600.0
 
 # The knobs phase: the JAX package's remaining variables, each forced on
 # bees96x64 and bees_d-420 at q95. The numeric ones (EXACT_LUT,
-# LANE_SAFE, SEL_MATMUL) may move bits; the route and opt-out ones must
+# LANE_SAFE, SEL_MATMUL) may move bits; the route ones and NO_NATIVE must
 # give the default bytes, but for LANES=0, whose blocks-leading compare
 # (ops/tiles.py) is another rounding of the block error than the
 # lane-major one, as in the JAX package (held to the golden band).
@@ -228,13 +218,11 @@ KNOB_SETTINGS = [
     ("LANES=0 ZEROING_FUSED=0", {"LANES": "0", "ZEROING_FUSED": "0"}, False),
     ("STAGED_ZEROING=0", {"STAGED_ZEROING": "0"}, True),
     ("NO_NATIVE=1", {"NO_NATIVE": "1"}, True),
-    ("NO_INCR_SAVE=1 NO_HISTO_REUSE=1",
-     {"NO_INCR_SAVE": "1", "NO_HISTO_REUSE": "1"}, True),
     ("PALLAS=1 EXACT_LUT=1", {"PALLAS": "1", "EXACT_LUT": "1"}, False),
 ]
 KNOB_VARS = ("EXACT_LUT", "LANE_SAFE", "SEL_MATMUL", "ZEROING_FUSED",
-             "LANES", "STAGED_ZEROING", "NO_NATIVE", "NO_INCR_SAVE",
-             "NO_HISTO_REUSE", "PALLAS", "ZEROING_DEBUG")
+             "LANES", "STAGED_ZEROING", "NO_NATIVE", "PALLAS",
+             "ZEROING_DEBUG")
 
 # --checkcuda's per-stage mismatch counts on bees_d-420.jpg, as
 # tests/test_torch_tooling.py pins them for the port on the CPU (JAX's
@@ -1099,25 +1087,6 @@ def serial_threads(outputs, threads=3):
     tmp.cleanup()
 
 
-@contextlib.contextmanager
-def _route_env(env):
-    """Set the route knobs' variables as `env` says (unset the others)
-    for the block."""
-    keys = ["GUETZLI_TPU_" + k for k in ROUTE_KNOBS]
-    saved = {k: os.environ.get(k) for k in keys}
-    for k in keys:
-        os.environ.pop(k, None)
-    os.environ.update({"GUETZLI_TPU_" + k: v for k, v in env.items()})
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
 def _quant_start(path, dev, tile=1, padded=None):
     """A comparator (padded as `padded` says, None: the default) and the
     quant search's base image for `path` (tiled tile x tile), its
@@ -1273,76 +1242,15 @@ def route_sparse(dev):
             raise RuntimeError("sparse wave differs from the full compare")
 
 
-def route_encodes(dev, outputs):
-    """Both mosaics encoded under every ROUTE_CONFIGS entry, in turns
-    (the order reversed every other round), with the launch counts set to
-    0 before and read after: each encode's bytes must equal the
-    default path's (phase_e2e) and lie within 2% of golden, and every
-    kernel of the 4:4:4 and 4:2:0 paths must launch. Returns
-    {config: {path: [(wall, timings, counters), ...]}}."""
-    from guetzli_tpu_torch import config
-    from guetzli_tpu_torch.kernels import tile_compare as kc
-    from guetzli_tpu_torch.search.processor import ProcessStats
-    log("route auto on cuda: %s" % config.CUDA_AUTO)
-    _reset_launches()
-    runs = {name: {p: [] for p, _g in ROUTE} for name, _e in ROUTE_CONFIGS}
-    for r in range(ROUTE_ROUNDS):
-        order = ROUTE_CONFIGS if r % 2 == 0 else ROUTE_CONFIGS[::-1]
-        for name, env in order:
-            for path, golden in ROUTE:
-                stats = ProcessStats()
-                with _route_env(env):
-                    out, wall = _serial_encode(path, dev, stats)
-                t, c = stats.timings, stats.counters
-                runs[name][path].append((wall, t, c))
-                log("route %s, %s: %.2f s, %d bytes; select_quant_matrix "
-                    "%.3f s (trials %d, waves %d of %d trials), back_end "
-                    "%.3f s (backend_dispatch %.3f, backend_fetch %.3f, "
-                    "iterations %d)"
-                    % (name, path, wall, len(out),
-                       t.get("select_quant_matrix", 0),
-                       c.get("quant_trials", 0), c.get("quant_waves", 0),
-                       c.get("quant_wave_trials", 0), t.get("back_end", 0),
-                       t.get("backend_dispatch", 0),
-                       t.get("backend_fetch", 0), c.get("backend_iters", 0)))
-                if stats.search_error is not None:
-                    raise RuntimeError("search failed: %s"
-                                       % stats.search_error)
-                _check_golden(path, out, golden)
-                if out != outputs[path]:
-                    raise RuntimeError("%s under %s: %d bytes, the default "
-                                       "path gave %d" % (
-                                           path, name, len(out),
-                                           len(outputs[path])))
-    launches = _launch_counts()
-    launches.pop(kc.ENTRY)
-    log("route launches: %s" % ", ".join("%s %d" % kv
-                                         for kv in launches.items()))
-    if min(launches.values()) == 0:
-        raise RuntimeError("a kernel was not launched on the route's "
-                           "encodes: %s" % launches)
-    for name, _e in ROUTE_CONFIGS:
-        for path, _g in ROUTE:
-            rs = runs[name][path]
-            med = {k: float(np.median([t.get(k, 0.0) for _w, t, _c in rs]))
-                   for k in ("select_quant_matrix", "backend_dispatch",
-                             "backend_fetch", "back_end")}
-            log("route median %s, %s: wall %.3f s, %s" % (
-                name, path, float(np.median([w for w, _t, _c in rs])),
-                ", ".join("%s %.3f s" % kv for kv in med.items())))
-    return runs
-
-
-def phase_route(dev, outputs):
+def phase_route(dev):
     """The accelerator search route: waves against single compares, the
-    large wave, the sparse wave, then the paired encodes."""
+    large wave, the sparse wave."""
     worst = route_waves(dev)
     log("route wave peak: at most %.0f B per trial and pixel "
         "(Comparator._QUANT_TRIAL_BYTES_PER_PIXEL %d)" % (
             worst, _trial_bytes()))
     route_wave_large(dev)
     route_sparse(dev)
-    route_encodes(dev, outputs)
 
 
 def _trial_bytes():
@@ -1567,7 +1475,7 @@ def padded_encodes(dev, outputs):
     on: bytes within 2% of golden, distance at or below the target, every
     greedy kernel and compare of the 4:4:4 and 4:2:0 paths launched. Then
     both mosaics in turns with the padding on and off (medians of 2 each,
-    with phase_e2e's own run): the walls behind config.CUDA_AUTO["pad"].
+    with phase_e2e's own run): the walls behind GUETZLI_TPU_PAD's default.
     Returns {path: bytes} of the padded encodes."""
     from guetzli_tpu_torch.kernels import tile_compare as kc
     from guetzli_tpu_torch.search.processor import ProcessStats
@@ -1630,12 +1538,11 @@ def padded_encodes(dev, outputs):
 def padded_corpus(dev, known):
     """The lockstep corpus driver with the padding on (the CompareBatcher)
     and off, in turns, medians of 2, on three corpora: the 17 images of
-    buckets 128x96 and 160x128 as 4:2:0 JPEGs under the card's auto
-    route and as PNGs with GUETZLI_TPU_SPARSE=0 (small images that share
-    buckets, the batcher's traffic), and CORPUS under the auto route
-    (images of different sizes, one per bucket and kind). The padded
-    corpus's bytes must equal each image's serial padded encode (`known`:
-    those phase_e2e's rows already gave under the auto route), and its
+    buckets 128x96 and 160x128 as 4:2:0 JPEGs and as PNGs (small images
+    that share buckets, the batcher's traffic), and CORPUS (images of
+    different sizes, one per bucket and kind). The padded corpus's bytes
+    must equal each image's serial padded encode (`known`: those
+    phase_e2e's rows already gave), and its
     first run must launch each greedy kernel and compare of its passes
     once for the whole corpus."""
     from guetzli_tpu_torch.kernels import tile_compare as kc
@@ -1645,12 +1552,11 @@ def padded_corpus(dev, known):
     names = BUCKET_128x96 + BUCKET_160x128
     corpora = [
         ("-420.jpg x%d" % len(names),
-         ["tests/corpus/%s-420.jpg" % n for n in names], {}),
+         ["tests/corpus/%s-420.jpg" % n for n in names]),
         (".png x%d" % len(names),
-         ["tests/corpus/%s.png" % n for n in names],
-         {"GUETZLI_TPU_SPARSE": "0"}),
-        ("mixed x%d" % len(CORPUS), [p for p, _g in CORPUS], {})]
-    for label, paths, env in corpora:
+         ["tests/corpus/%s.png" % n for n in names]),
+        ("mixed x%d" % len(CORPUS), [p for p, _g in CORPUS])]
+    for label, paths in corpora:
         items = [(p, (REPO / p).read_bytes()) for p in paths]
         modes = set()
         for p in paths:
@@ -1659,9 +1565,9 @@ def padded_corpus(dev, known):
                 for e in (ka.ENTRY, zl.ENTRY)}
         want[kc.ENTRY] = 0
         serial, serial_walls = {}, []
-        with _env(dict(env, GUETZLI_TPU_PAD="1")):
+        with _pad_env("1"):
             for p in paths:
-                if not env and p in known:
+                if p in known:
                     serial[p] = known[p]
                     continue
                 serial[p], wall = _serial_encode(p, dev)
@@ -1670,7 +1576,7 @@ def padded_corpus(dev, known):
         for value in ("1", "0", "0", "1"):
             walls, counters = {}, {}
             _reset_launches()
-            with _env(dict(env, GUETZLI_TPU_PAD=value)):
+            with _pad_env(value):
                 torch.cuda.synchronize()
                 t0 = time.time()
                 res = encode_corpus_lockstep(
@@ -2407,11 +2313,10 @@ def main(argv=()):
     launches["tile_compare"] = (phase_checkcuda(dev)
                                 + phase_444p_e2e(dev, outputs))
     phase_butteraugli(dev)
-    phase_route(dev, outputs)
-    # The corpus phase runs the default route (config.auto("pad") is the
-    # serial encodes' geometry too); the padded corpus is phase_padded's.
-    with _route_env({"TREE_QUANT": "1"}):
-        corpus_launches = phase_corpus(dev, outputs, walls)
+    phase_route(dev)
+    # The corpus phase runs at the serial encodes' exact geometry; the
+    # padded corpus is phase_padded's.
+    corpus_launches = phase_corpus(dev, outputs, walls)
     phase_padded(dev, outputs, records)
     phase_mesh(dev, outputs, walls)
     phase_memory()

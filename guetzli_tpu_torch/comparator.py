@@ -14,7 +14,9 @@ keeps it on its device, and offers:
     macroblock children; on a bucket, every per-block array has the
     bucket's block grid, its padded rows zero.
 
-It also offers the JAX package's accelerator search route:
+It also offers the JAX package's accelerator search route, which the
+search takes wherever supports_quant_batch and supports_sparse say it
+can (everywhere but under a mesh):
 
   * the batched quant compare: B requantizations of a device-resident
     base, each trial's score bit for bit that of its single compare
@@ -22,8 +24,6 @@ It also offers the JAX package's accelerator search route:
   * the back end's device-resident coefficient state, updated by sparse
     per-coefficient deltas instead of whole-plane uploads
     (backend_sync_full, dispatch_compare_sparse_coeffs);
-  * fetch_compare_pure, the side-effect-free fetch of the pipelined back
-    end's prefetch thread;
   * on a bucket, CompareBatcher: the lockstep corpus driver's compares
     of different images of one bucket run as one stacked compare, each
     row bit for bit its image's single padded compare.
@@ -36,9 +36,9 @@ captured once and replayed (compare_graphs.py), keyed by what fixes
 their op sequence and shapes (and the knobs that choose ops):
 "plain", the whole-image compare of a 4:4:4 or 4:2:0 coefficient image
 to its flat score and diffmap, which the plain compare (the first
-compare, the quant trials without the tree), the compare + weights of a
-coefficient image and the resident state's compare share (the resident
-state is copied into the graph's input); "weights", the block weights
+compare), the compare + weights of a coefficient image and the resident
+state's compare share (the resident state is copied into the graph's
+input); "weights", the block weights
 of such a compare's diffmap, by direction, float32 target and grid
 factors; and "quant", a wave (its size in its input's shape). The
 CompareBatcher's stacks and the banded compares stay eager. `counters`
@@ -84,20 +84,8 @@ from guetzli_tpu_torch.parallel.mesh import (RowBands, mesh_from_env,
 _F32 = np.float32
 
 # Per thread: `dispatching` inside a compare_dispatch span, so that a
-# nested dispatch site adds no second span; `prefetch` on a prefetch
-# thread, whose spans reach the profiler's trace only.
+# nested dispatch site adds no second span.
 _span_state = threading.local()
-
-
-def prefetch_thread():
-    """Mark the calling thread as a prefetch thread (a thread pool's
-    initializer): its compares overlap the main thread's work, which
-    times the wait it sees itself."""
-    _span_state.prefetch = True
-
-
-def _charged(timings):
-    return None if getattr(_span_state, "prefetch", False) else timings
 
 
 @contextmanager
@@ -109,7 +97,7 @@ def dispatch_span(timings):
         return
     _span_state.dispatching = True
     try:
-        with spans.timed(_charged(timings), "compare_dispatch"):
+        with spans.timed(timings, "compare_dispatch"):
             yield
     finally:
         _span_state.dispatching = False
@@ -117,7 +105,7 @@ def dispatch_span(timings):
 
 def wait_span(timings):
     """The compare_wait span on `timings`."""
-    return spans.timed(_charged(timings), "compare_wait")
+    return spans.timed(timings, "compare_wait")
 
 
 def _dispatches(method):
@@ -519,9 +507,10 @@ class Comparator:
     rgb: uint8 [h, w, 3] (numpy); device: a torch.device. ``xyb0`` may be
     passed in (interop.py) instead of computed from rgb (exact geometry
     only). ``padded`` puts the image on its bucket (ops/padgeom.py):
-    None reads config.auto("pad", device). On a bucket, xyb0 and the
-    distmaps are [.., Hp, Wp], zero or garbage outside the image, and
-    the per-block state has the bucket's block grid.
+    None reads GUETZLI_TPU_PAD (config.pad: padded only when it is 1).
+    On a bucket, xyb0 and the distmaps are [.., Hp, Wp], zero or garbage
+    outside the image, and the per-block state has the bucket's block
+    grid.
 
     ``mesh`` (a parallel/dist.Group) encodes the image over the ranks of
     the group: this rank's device state and compares cover its band of rows
@@ -531,9 +520,9 @@ class Comparator:
     (mesh_from_env); False is one device whatever the environment says.
     Under a mesh the compares (4:4:4 and 4:2:0) run at exact geometry,
     the frozen zeroing state is this rank's block rows, and the routes
-    that keep per-image device state stay off, as in the JAX package: the
-    quant waves, the sparse back end (and in the search, speculation and
-    the pipeline).
+    that keep per-image device state stay off, as in the JAX package:
+    supports_quant_batch and supports_sparse are False, so the search
+    takes the serial quant loop and whole-plane back-end compares.
 
     ``batcher`` (a CompareBatcher, set by the lockstep corpus driver) makes
     a padded comparator's dispatch_compare and
@@ -558,7 +547,7 @@ class Comparator:
         self.bands = RowBands(height, self.mesh) if self.mesh else None
         if padded is None:
             padded = (xyb0 is None and self.mesh is None
-                      and config.auto("pad", self.device))
+                      and config.pad() is True)
         if padded and self.mesh is not None:
             raise ValueError("the padded geometry stays off under a mesh")
         self.geom = PadGeom(width, height) if padded else None
@@ -660,7 +649,7 @@ class Comparator:
         """(fn(*inputs), how it ran) by the compare graph of `key` and the
         knobs that choose the chain's ops (compare_graphs.py)."""
         key += (config.lane_safe(), config.exact_lut(), config.sel_matmul())
-        return self._graphs.run(key, fn, inputs, _charged(self.timings))
+        return self._graphs.run(key, fn, inputs, self.timings)
 
     def _flat_compare(self, kind, compare, inputs):
         """(the flat [1 + diffmap pixels] score and diffmap of
@@ -1217,12 +1206,9 @@ class Comparator:
         return d, w4
 
     def fetch_compare_pure(self, handle):
-        """fetch_compare without side effects on the comparator, so a
-        prefetch thread may run it (the pipelined back end applies the
-        distance and distmap on the main thread at its join): (distance,
-        [4, NB] weights, the device distmap), in one device-to-host
-        copy. On a prefetch thread (prefetch_thread) its spans add
-        nothing to self.timings."""
+        """fetch_compare without side effects on the comparator:
+        (distance, [4, NB] weights, the device distmap), in one
+        device-to-host copy."""
         with dispatch_span(self.timings):
             score, dmap, w4, _args = _resolved(handle)
             flat = _score_weights(score, w4)
@@ -1321,52 +1307,6 @@ class Comparator:
         image has the resident state's grid)."""
         self.compares += 1
         return self._weighted("444", (self._dev_coeffs,), args)
-
-    def compute_block_error_adjustment_weights(
-            self, direction, max_block_dist, target_mul, factor_x, factor_y,
-            distmap):
-        """butteraugli_comparator.cc:169-233 for one radius, in numpy."""
-        target = self.target_distance * target_mul
-        w, h = self.width, self.height
-        sizex, sizey = 8 * factor_x, 8 * factor_y
-        bw = (w + sizex - 1) // sizex
-        bh = (h + sizey - 1) // sizey
-        d = np.asarray(distmap, dtype=np.float32)
-        d = d[:h, :w] if d.ndim == 2 else d.reshape(h, w)
-        pad = np.zeros((bh * sizey, bw * sizex), dtype=np.float32)
-        pad[:h, :w] = d
-        max_dist = pad.reshape(bh, sizey, bw, sizex).max(axis=(1, 3))
-
-        r = max_block_dist
-        local = max_dist
-        for _ in range(r):
-            p = np.pad(local, 1, mode='edge')
-            local = np.maximum.reduce([
-                p[0:-2, 0:-2], p[0:-2, 1:-1], p[0:-2, 2:],
-                p[1:-1, 0:-2], p[1:-1, 1:-1], p[1:-1, 2:],
-                p[2:, 0:-2], p[2:, 1:-1], p[2:, 2:]])
-        max_local = np.maximum(local, target)
-
-        weight = np.zeros((bh, bw), dtype=np.float32)
-        if direction > 0:
-            ok = (max_dist <= target) & (max_local <= 1.1 * target)
-            weight[ok] = 1.0
-        else:
-            k_local_max_weight = 0.5
-            src = max_dist > ((1 - k_local_max_weight) * target
-                              + k_local_max_weight * max_local)
-            # weight = 1/(dmin+1), dmin = Chebyshev distance to the
-            # nearest src block within radius r.
-            reach = src.copy()
-            for dist in range(r + 1):
-                contrib = np.float32(1.0 / (dist + 1.0))
-                weight = np.maximum(weight, np.where(reach, contrib, 0.0))
-                if dist < r:
-                    p = np.pad(reach, 1, mode='constant')
-                    reach = (p[0:-2, 0:-2] | p[0:-2, 1:-1] | p[0:-2, 2:]
-                             | p[1:-1, 0:-2] | p[1:-1, 1:-1] | p[1:-1, 2:]
-                             | p[2:, 0:-2] | p[2:, 1:-1] | p[2:, 2:])
-        return weight.reshape(-1)
 
 
 def fetch_compare_many(comps, handles):

@@ -6,11 +6,9 @@ Across a corpus those steps are independent, so each phase runs in
 lockstep over every image:
 
   * the first compare of every image: all queued, then all fetched;
-  * the quant search in rounds: every active image's trial compare is
-    queued before any is fetched (lockstep_select_quant_matrix); with the
-    quant tree on (config.py), every image's subtree waves are queued
-    and all their scores come back in one device-to-host copy a round
-    (search/quant_tree.lockstep_select_quant_matrix_tree);
+  * the quant search in rounds: every active image's subtree waves are
+    queued and all their scores come back in one device-to-host copy a
+    round (search/quant_tree.lockstep_select_quant_matrix_tree);
   * each masking pass as ONE zeroing call over every image's blocks
     concatenated, with per-block error limits: one launch of the greedy
     kernel (B, B' or B'') and one of its compare (A, A' or A'') for the
@@ -20,7 +18,7 @@ lockstep over every image:
     serialization are numpy and ctypes calls that release the GIL), then
     one combined device-to-host copy completes every compare
     (comparator.fetch_compare_many), the sparse dispatches of each
-    image's resident coefficients (config.sparse) among them.
+    image's resident coefficients (the 4:4:4 pass) among them.
 
 Each image keeps its own Processor and Comparator, and each decision
 depends only on that image's own results, so every output equals the
@@ -36,16 +34,15 @@ with threads > 1 still issues them so, ROADMAP.md section 3). A
 comparator's resident back-end coefficients belong to its image: only
 that image's generator updates them.
 
-With the padded geometry on (config.auto("pad"), the serial encoders'
-knob too; off by default) every comparator sits on its image's bucket
-(ops/padgeom.py): the queued whole-image compares of a round -- the
-first compares, the quant rounds without the tree, the back end's plain
-dispatches -- run as one stacked compare per bucket, each row bit for
-bit its image's single padded compare, and the zeroing call runs on
-the bucket block grids and keeps the real blocks' rows
-(_corpus_masking). The tree's waves and the sparse dispatches of a
-resident state stay per image, as in the JAX package. The back end is not pipelined here: a round's combined fetch
-already waits once for every image.
+With the padded geometry on (GUETZLI_TPU_PAD=1, config.pad, the serial
+encoders' knob too; off by default) every comparator sits on its image's
+bucket (ops/padgeom.py): the queued whole-image compares of a round --
+the first compares and the back end's plain dispatches of the 4:2:0
+passes -- run as one stacked compare per bucket, each row bit for bit
+its image's single padded compare, and the zeroing call runs on the
+bucket block grids and keeps the real blocks' rows (_corpus_masking).
+The tree's waves and the sparse dispatches of a resident state stay per
+image, as in the JAX package.
 """
 
 import sys
@@ -57,90 +54,8 @@ import torch
 from guetzli_tpu_torch import comparator as cmp_mod
 from guetzli_tpu_torch import compare_graphs, config, runtime, spans
 from guetzli_tpu_torch.search import zeroing
-from guetzli_tpu_torch.search.processor import QuantMatrixGenerator
-
-_TARGET_MUL_HIGH = 0.97
-_TARGET_MUL_LOW = 0.95
-
-
-class _QuantSearch:
-    """One image's SelectQuantMatrix (processor.cc:340-372), split at the
-    fetch point: the serial Processor.select_quant_matrix's decisions."""
-
-    def __init__(self, proc, jpg_in, downsample, best_q, img):
-        self.proc = proc
-        self.jpg_in = jpg_in
-        self.best_q = best_q
-        self.img = img
-        self.qgen = QuantMatrixGenerator(downsample)
-        self.cur_q = best_q.copy()
-        self.initial = True
-        self.best = None
-        self.done = False
-        self.pending = None
-
-    def dispatch(self):
-        """Queue the current trial's compare and serialize its JPEG."""
-        self.pending = self.proc._quant_eval_start(self.jpg_in, self.cur_q)
-
-    def resolve(self):
-        """Fetch the trial, advance the binary search and set up the next
-        trial (or finish)."""
-        dist_ok, size = self.proc._quant_resolve(
-            self.jpg_in, self.cur_q, *self.pending, self.img,
-            _TARGET_MUL_HIGH)
-        self.pending = None
-        if self.initial:
-            self.best = (self.cur_q.copy(), dist_ok, size)
-            self.initial = False
-        else:
-            self.qgen.add(self.cur_q, dist_ok)
-            better = ((dist_ok and not self.best[1])
-                      or (dist_ok == self.best[1] and size < self.best[2]))
-            if better:
-                self.best = (self.cur_q.copy(), dist_ok, size)
-                if dist_ok and not self.proc.comparator.distance_ok(
-                        _TARGET_MUL_LOW):
-                    self._finish()
-                    return
-        qn = self.qgen.get_next()
-        if qn is None:
-            self._finish()
-            return
-        self.cur_q = qn
-
-    def _finish(self):
-        self.best_q[:] = self.best[0]
-        self.done = True
-
-
-def lockstep_select_quant_matrix(procs, jpgs, downsamples, best_qs, imgs):
-    """Every image's quant-matrix search in lockstep rounds: each round
-    queues every active image's trial, then fetches them in corpus order
-    (with a CompareBatcher on the comparators, the first fetch runs the
-    round's trials of each bucket as one stacked compare).
-
-    Per-image lists; `best_qs` entries are updated in place as
-    Processor.select_quant_matrix updates its best_q. Returns the
-    per-image dist_ok (the serial method's return value). With the quant
-    tree on for the comparators' device (config.py), the rounds are the
-    tree's waves."""
-    if config.auto("tree_quant", procs[0].comparator.device):
-        from guetzli_tpu_torch.search.quant_tree import \
-            lockstep_select_quant_matrix_tree
-        return lockstep_select_quant_matrix_tree(procs, jpgs, downsamples,
-                                                 best_qs, imgs)
-    sms = [_QuantSearch(p, j, d, q, i)
-           for p, j, d, q, i in zip(procs, jpgs, downsamples, best_qs, imgs)]
-    while True:
-        active = [s for s in sms if not s.done]
-        if not active:
-            break
-        for s in active:
-            s.dispatch()
-        for s in active:
-            s.resolve()
-    return [s.best[1] for s in sms]
+from guetzli_tpu_torch.search.quant_tree import \
+    lockstep_select_quant_matrix_tree
 
 
 def encode_corpus_lockstep(inputs, quality: float = 95,
@@ -188,7 +103,7 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
                                                     decode_jpeg_to_rgb)
     dev = resolve(device)
     target = consts.butteraugli_score_for_quality(quality)
-    padded = config.auto("pad", dev)
+    padded = config.pad() is True
     batcher = cmp_mod.CompareBatcher()
     inputs = list(inputs)
     results = [None] * len(inputs)
@@ -272,7 +187,7 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
             imgs.append(img)
             best_qs.append(c["q_in"].copy())
         with spans.timed(phase_walls, "quant"):
-            oks = lockstep_select_quant_matrix(
+            oks = lockstep_select_quant_matrix_tree(
                 procs, jpgs, [downsample != 0] * len(batch), best_qs, imgs)
         for i, ok in enumerate(oks):
             if not ok:

@@ -6,22 +6,25 @@ orchestration (binary search over quant matrices, the up/down coefficient
 adjustment loop, output selection) stays on the host as the reference
 keeps it:
 
-  * TryQuantMatrix (processor.cc:310-338) -> requantize on the host + one
-    whole-image compare per candidate matrix; or the trials of the next
+  * TryQuantMatrix (processor.cc:310-338) -> the trials of the next
     three search steps as batched compares that requantize on the device
-    (search/quant_tree.py), or one-deep speculation;
+    (search/quant_tree.py), replayed on the host in the serial loop's
+    order;
   * ComputeBlockZeroingOrder loop (:376-487, :643-671) -> one greedy
     zeroing kernel over all blocks (search/zeroing.py): one pass for
     4:4:4, a Y pass and a chroma pass for 4:2:0;
   * the back-end up/down loop (:723-919) -> host loop with a device
-    compare + block weights per iteration and native C++ flips; the
-    coefficients may stay on the device, updated by each iteration's
-    flipped coefficients, and the fetches may run a lag behind.
+    compare + block weights per iteration and native C++ flips; in the
+    4:4:4 pass the coefficients stay on the device, updated by each
+    iteration's flipped coefficients.
 
-The route knobs (config.py: tree_quant, speculate, sparse, pipeline_lag)
-choose among these; each way gives the serial loop's bytes, except a
-pipeline lag of 2 or more, which builds an iteration's order from older
-weights.
+The route follows what the comparator can take: the waves where
+Comparator.supports_quant_batch holds and the resident coefficients
+where supports_sparse does, which is everywhere but under a mesh.
+Under a mesh the quant search is the serial loop (one host
+requantization and one whole-image compare per trial,
+select_quant_matrix_serial) and every back-end compare uploads the
+whole planes. Both routes give the same bytes.
 """
 
 import ctypes
@@ -32,7 +35,6 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from guetzli_tpu_torch import comparator as cmp_mod
 from guetzli_tpu_torch import config, consts, native, runtime, spans
 from guetzli_tpu_torch.codec import histograms as hg
 from guetzli_tpu_torch.codec import jpeg_data as jd
@@ -40,6 +42,7 @@ from guetzli_tpu_torch.codec import writer as jwriter
 from guetzli_tpu_torch.codec.encoder import encode_rgb_to_jpeg
 from guetzli_tpu_torch.comparator import Comparator
 from guetzli_tpu_torch.kernels import tile_compare
+from guetzli_tpu_torch.search import quant_tree
 from guetzli_tpu_torch.search import state as st
 from guetzli_tpu_torch.search import zeroing
 
@@ -127,22 +130,6 @@ def return_memory(collect=True):
         ctypes.CDLL("libc.so.6").malloc_trim(0)
     except (OSError, AttributeError):
         pass
-
-
-def _backend_pipeline_lag(comparator):
-    """The back end's pipeline depth (JAX processor._backend_pipeline_lag).
-
-    Lag N >= 1 builds iteration k's candidate order from the weights of
-    compare k-N, fetched on a prefetch thread, instead of waiting for
-    compare k-1. At lag 1 the join comes before the next order is built,
-    so the decisions and bytes are lag 0's; lag >= 2 uses older weights
-    and moves the bytes within the band. Every iteration's output is
-    still MaybeOutput-scored with its own distance. GUETZLI_TPU_PIPELINE,
-    else config.auto per device; 0 under a mesh (comparator.mesh), as in
-    the JAX package."""
-    if comparator.mesh is not None:
-        return 0
-    return config.auto("pipeline_lag", comparator.device)
 
 
 def compare_quant_matrices(a, b):
@@ -320,23 +307,15 @@ class Processor:
 
     # -- quant matrix selection (processor.cc:310-372) ----------------
 
-    def _quant_eval_start(self, jpg_in, q):
-        """The first half of TryQuantMatrix (processor.cc:310-338):
-        requantize, queue the trial's compare, serialize the candidate
-        while the device works. No side effect on the search state, so a
-        lockstep corpus starts every image's trial before fetching any.
-        Returns (trial, pending, encoded) for _quant_resolve."""
+    def try_quant_matrix(self, jpg_in, q, img, target_mul):
+        """TryQuantMatrix (processor.cc:310-338): requantize, queue the
+        trial's compare, serialize the candidate while the device works,
+        then fetch the compare (with recovery), log and MaybeOutput, in
+        the reference's program order. Returns (dist_ok, size)."""
         trial = st.CoeffImage.from_jpeg(jpg_in)
         trial.apply_global_quantization(q)
         pending = self.comparator.dispatch_compare(trial)
         encoded = self.output_jpeg(trial.save_to_jpeg_data(jpg_in))
-        return trial, pending, encoded
-
-    def _quant_resolve(self, jpg_in, q, trial, pending, encoded, img,
-                       target_mul):
-        """The second half: fetch the compare (with recovery), log and
-        MaybeOutput, in the reference's program order. Returns (dist_ok,
-        size)."""
         img.comps = trial.comps
         self.stats.inc("iters")
         self.stats.inc("quant_trials")
@@ -354,31 +333,22 @@ class Processor:
         self.maybe_output(encoded)
         return dist_ok, len(encoded)
 
-    def try_quant_matrix(self, jpg_in, q, img, target_mul):
-        """TryQuantMatrix (processor.cc:310-338): requantize, compare,
-        serialize, MaybeOutput. Returns (dist_ok, size)."""
-        return self._quant_resolve(jpg_in, q,
-                                   *self._quant_eval_start(jpg_in, q), img,
-                                   target_mul)
-
     def select_quant_matrix(self, jpg_in, downsample, best_q,
                             img: st.CoeffImage):
-        """SelectQuantMatrix (processor.cc:340-372), by one of three
-        routes with the serial loop's trials, logs and outputs
-        (config.py): the tree's waves (search/quant_tree.py), one-deep
-        speculation (while a trial's compare is in flight, the successor
-        for each outcome is dispatched; the discarded branch is never
-        fetched or logged), or the serial loop (try_quant_matrix)."""
-        dev = self.comparator.device
-        if (config.auto("tree_quant", dev)
-                and self.comparator.supports_quant_batch()):
-            from guetzli_tpu_torch.search.quant_tree import \
-                select_quant_matrix_tree
-            return select_quant_matrix_tree(self, jpg_in, downsample,
-                                            best_q, img)
-        if config.auto("speculate", dev) and self.comparator.mesh is None:
-            return self._select_quant_matrix_speculative(jpg_in, downsample,
-                                                         best_q, img)
+        """SelectQuantMatrix (processor.cc:340-372): the tree's waves
+        (search/quant_tree.py) where the comparator takes them, else the
+        serial loop; the same trials, logs, outputs and result."""
+        if self.comparator.supports_quant_batch():
+            return quant_tree.select_quant_matrix_tree(
+                self, jpg_in, downsample, best_q, img)
+        return self.select_quant_matrix_serial(jpg_in, downsample, best_q,
+                                               img)
+
+    def select_quant_matrix_serial(self, jpg_in, downsample, best_q,
+                                   img: st.CoeffImage):
+        """SelectQuantMatrix as the reference runs it: one
+        try_quant_matrix per trial. Returns dist_ok of the best trial
+        and sets best_q."""
         qgen = QuantMatrixGenerator(downsample)
         target_mul_high = 0.97
         target_mul_low = 0.95
@@ -399,53 +369,6 @@ class Processor:
                 if dist_ok and not self.comparator.distance_ok(
                         target_mul_low):
                     break
-        best_q[:] = best[0]
-        return best[1]
-
-    def _select_quant_matrix_speculative(self, jpg_in, downsample, best_q,
-                                         img):
-        """The serial loop with one-deep speculation (JAX processor.py
-        :356-411): while a trial's compare is in flight, the successor
-        for each of its outcomes is requantized, dispatched and
-        serialized; the branch not taken is never fetched or logged."""
-        qgen = QuantMatrixGenerator(downsample)
-        target_mul_high = 0.97
-        target_mul_low = 0.95
-        cur_q = best_q.copy()
-        cur = self._quant_eval_start(jpg_in, cur_q)
-        initial = True
-        best = None
-        while True:
-            spec = {}
-            for outcome in ((True,) if initial else (True, False)):
-                g2 = qgen.clone()
-                if not initial:
-                    g2.add(cur_q, outcome)
-                qn = g2.get_next()
-                if qn is not None:
-                    spec[outcome] = (g2, qn,
-                                     self._quant_eval_start(jpg_in, qn))
-            if initial and True in spec:
-                # The initial trial is not added to the generator: both
-                # outcomes share one successor.
-                spec[False] = spec[True]
-            dist_ok, size = self._quant_resolve(jpg_in, cur_q, *cur, img,
-                                                target_mul_high)
-            if initial:
-                best = (cur_q.copy(), dist_ok, size)
-                initial = False
-            else:
-                qgen.add(cur_q, dist_ok)
-                if ((dist_ok and not best[1])
-                        or (dist_ok == best[1] and size < best[2])):
-                    best = (cur_q.copy(), dist_ok, size)
-                    if dist_ok and not self.comparator.distance_ok(
-                            target_mul_low):
-                        break
-            branch = spec.get(dist_ok)
-            if branch is None:
-                break
-            qgen, cur_q, cur = branch
         best_q[:] = best[0]
         return best[1]
 
@@ -575,15 +498,10 @@ class Processor:
     def select_frequency_back_end(self, jpg, img: st.CoeffImage, comp_mask,
                                   target_mul, stop_early,
                                   offsets, cand_idx, cand_err):
-        """Drive back_end_steps: serially (fetch each yielded compare
-        before the next iteration) or, at a pipeline lag, through the
-        prefetch thread's start/join protocol."""
-        lag = _backend_pipeline_lag(self.comparator)
+        """Drive back_end_steps, fetching each yielded compare before the
+        next iteration."""
         gen = self.back_end_steps(jpg, img, comp_mask, target_mul,
-                                  stop_early, offsets, cand_idx, cand_err,
-                                  pipelined=lag)
-        if lag:
-            return self._drive_back_end_pipelined(gen, lag)
+                                  stop_early, offsets, cand_idx, cand_err)
         result = None
         while True:
             try:
@@ -596,78 +514,22 @@ class Processor:
                     lambda: self.comparator.replay(pending),
                     self.comparator.fetch_compare, pending)
 
-    def _drive_back_end_pipelined(self, gen, lag):
-        """Drive the pipelined back_end_steps protocol (JAX
-        processor._drive_back_end_pipelined).
-
-        On ("start", pending): fetch the dispatched compare on a prefetch
-        thread (Comparator.fetch_compare_pure, which changes nothing) so
-        the wait overlaps the next iteration's host work. On ("join",):
-        deliver the oldest fetch, applying the distance and distmap here
-        on the main thread. The joins sit at fixed points of the
-        generator, so the decisions do not depend on the fetches' timing.
-        The wait the main thread sees at a join is its compare_wait.
-        A recoverable error in a fetch replays that compare from the
-        current host state (runtime.py)."""
-        import collections
-        from concurrent.futures import ThreadPoolExecutor
-
-        comp = self.comparator
-        inflight = collections.deque()
-        ex = ThreadPoolExecutor(max_workers=max(1, lag),
-                                initializer=cmp_mod.prefetch_thread)
-        try:
-            msg = next(gen)
-            while True:
-                if msg[0] == "start":
-                    pending = msg[1]
-                    inflight.append(
-                        (ex.submit(comp.fetch_compare_pure, pending),
-                         pending))
-                    msg = gen.send(None)
-                    continue
-                fut, pending = inflight.popleft()
-                with self.stats.timed("backend_fetch"):
-                    try:
-                        with cmp_mod.wait_span(comp.timings):
-                            d, w4, dmap = fut.result()
-                        comp.distance = d
-                        comp.distmap = dmap
-                        result = (d, w4)
-                    except runtime.RECOVERABLE:
-                        self.recover("a pipelined fetch")
-                        result = self._recoverable(
-                            lambda: comp.replay(pending), comp.fetch_compare)
-                msg = gen.send(result)
-        except StopIteration:
-            return
-        finally:
-            ex.shutdown(wait=True)
-
     def back_end_steps(self, jpg, img: st.CoeffImage, comp_mask,
                        target_mul, stop_early,
-                       offsets, cand_idx, cand_err, pipelined=0):
+                       offsets, cand_idx, cand_err):
         """SelectFrequencyBackEnd (processor.cc:723-919) as a generator:
         yields each iteration's dispatched compare and receives its
         (distance, weights4) via send(). The serial driver fetches at
         once; the lockstep corpus driver advances every image to its
         yield and fetches all compares in one copy.
 
-        pipelined=N (_drive_back_end_pipelined) switches the protocol:
-        after each dispatch the generator yields ("start", pending) and
-        goes on; with N compares in flight it yields ("join",) to receive
-        the oldest one's (distance, weights4). Iteration k's order is then
-        built from compare k-N's weights; each output is still scored
-        with its own distance at its join. The pipeline drains at the
-        direction switch, so the fresh weights there read the current
-        distmap, as the serial loop does.
-
-        With config.sparse the image's coefficients stay on the device
-        (Comparator.backend_sync_full) and each iteration ships only its
-        flipped coefficients: the native flip loop's triplets, or, after
-        the Python flip loop, triplets rebuilt from the last_indexes
-        deltas."""
-        import collections
+        Where the comparator supports it (Comparator.supports_sparse: the
+        4:4:4 pass without a mesh) the image's coefficients stay on the
+        device (Comparator.backend_sync_full) and each iteration ships
+        only its flipped coefficients: the native flip loop's triplets,
+        or, after the Python flip loop, triplets rebuilt from the
+        last_indexes deltas. Otherwise each compare uploads the whole
+        planes."""
         ncomp = len(jpg.components)
         last_c = comp_mask.bit_length() - 1
         grid = img.comps[last_c]
@@ -708,31 +570,12 @@ class Processor:
         cached_weights = None
         limit = self.comparator.block_error_limit()
         clamped_off = np.clip(offsets[:nb], 0, max(len(cand_err) - 1, 0))
-        use_sparse = (config.auto("sparse", self.comparator.device)
-                      and self.comparator.supports_sparse(img, comp_mask))
+        use_sparse = self.comparator.supports_sparse(img, comp_mask)
         if use_sparse:
             self.comparator.backend_sync_full(img)
 
-        inflight = collections.deque()   # (direction, encoded) per start
-
-        def join(msg=("join",)):
-            """Receive the oldest compare in flight and score its
-            output."""
-            nonlocal cached_weights
-            d, w4 = yield msg
-            dirw, enc = inflight.popleft()
-            cached_weights = (dirw, w4)
-            self.stats.log(" BA[100.00%%] D[%6.4f]", d)
-            self.maybe_output(enc)
-
         for direction in (1, -1):
-            # The direction switch drains the pipeline, so the distmap
-            # and the best output are current before fresh weights.
-            while inflight:
-                yield from join()
             while True:
-                while pipelined and len(inflight) >= pipelined:
-                    yield from join()
                 if stop_early and direction == -1:
                     if prev_size > 1.01 * len(self.final.jpeg_data):
                         break
@@ -813,16 +656,12 @@ class Processor:
                             .dispatch_compare_with_weights(
                                 img, direction, target_mul, factor, factor)
                 with self.stats.timed("backend_serialize"):
-                    # GUETZLI_TPU_NO_INCR_SAVE=1: the whole save;
-                    # GUETZLI_TPU_NO_HISTO_REUSE=1: histograms rebuilt.
-                    # Both give the same bytes.
-                    if not can_collapse and config.incr_save():
+                    if not can_collapse:
                         img.update_jpeg_data(jpg_out, changed,
                                              flip_channels, bw)
                     else:
                         jpg_out = img.save_to_jpeg_data(jpg)
-                    if (len(jpg_out.components) == ncomp_out0
-                            and config.histo_reuse()):
+                    if len(jpg_out.components) == ncomp_out0:
                         encoded = self.output_jpeg(
                             jpg_out, dc_histograms0,
                             ac_histograms[:ncomp_out0])
@@ -842,15 +681,11 @@ class Processor:
                     len(order_blocks), n_changed_blocks,
                     blocks_to_change, nb, val_threshold, len(encoded),
                     100.0 - (100.0 * est_jpg_size) / len(encoded))
-                inflight.append((direction, encoded))
-                if pipelined:
-                    yield ("start", pending)
-                else:
-                    yield from join(pending)
+                d, w4 = yield pending
+                cached_weights = (direction, w4)
+                self.stats.log(" BA[100.00%%] D[%6.4f]", d)
+                self.maybe_output(encoded)
                 prev_size = est_jpg_size
-        # The end of both directions: score the outputs still in flight.
-        while inflight:
-            yield from join()
 
     def _global_order(self, direction, first_up_iter, cached_weights,
                       target_mul, factor, offsets, cand_err, last_indexes,

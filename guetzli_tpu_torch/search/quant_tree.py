@@ -19,7 +19,9 @@ from the memo. A batched trial's score equals its single compare bit for
 bit, so the decisions are the serial loop's.
 
 Two drivers share the state machine:
-  * select_quant_matrix_tree: one image, a dispatch and a fetch per wave;
+  * select_quant_matrix_tree: one image, a dispatch and a fetch per wave
+    (Processor.select_quant_matrix takes it wherever the comparator
+    supports_quant_batch, which is everywhere but under a mesh);
   * lockstep_select_quant_matrix_tree: a corpus; every active image's
     waves are dispatched first, then every score comes back in one
     device-to-host copy per round (parallel/lockstep.py).

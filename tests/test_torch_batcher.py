@@ -15,9 +15,9 @@ and the padded route end to end, on the CPU, one torch thread:
   * encodes with the padded geometry forced on (GUETZLI_TPU_PAD=1):
     bees_d.png and bees_d-420.jpg at q95 within 2% of golden, distance at
     or below target; the lockstep corpus of four images (one 4:2:0 JPEG)
-    through the batcher, with sparse deltas on and off and with the
-    quant tree, gives each image its serial padded bytes;
-  * the knob: auto off on the CPU, forced either way by GUETZLI_TPU_PAD;
+    through the batcher, on the default route (quant waves, sparse deltas
+    in the 4:4:4 pass), gives each image its serial padded bytes;
+  * the knob: off when unset, forced either way by GUETZLI_TPU_PAD;
     --checkcuda keeps the exact geometry under GUETZLI_TPU_PAD=1.
 """
 
@@ -274,15 +274,8 @@ def serial_padded():
 CORPUS_FILES = ("bees_d.png", "grad2.png", "stripes0.png", "bees_d-420.jpg")
 
 
-@pytest.mark.parametrize("env", [{"GUETZLI_TPU_SPARSE": "1"},
-                                 {"GUETZLI_TPU_SPARSE": "0"},
-                                 {"GUETZLI_TPU_TREE_QUANT": "1",
-                                  "GUETZLI_TPU_SPARSE": "1"}],
-                         ids=["sparse", "full", "tree"])
-def test_corpus_through_the_batcher(serial_padded, env, monkeypatch):
+def test_corpus_through_the_batcher(serial_padded, monkeypatch):
     monkeypatch.setenv("GUETZLI_TPU_PAD", "1")
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
     counters = {}
     res = encode_corpus_lockstep(
         [(p, (CORPUS / p).read_bytes()) for p in CORPUS_FILES], 95,
@@ -291,24 +284,22 @@ def test_corpus_through_the_batcher(serial_padded, env, monkeypatch):
         assert out == serial_padded[p], p
     assert 0 < counters["batched"] <= counters["compares"]
     assert counters["flushes"] < counters["batched"]
-    if env.get("GUETZLI_TPU_SPARSE") == "0":
-        assert counters["batched"] == counters["compares"]
 
 
 def test_pad_knob(monkeypatch):
     monkeypatch.delenv("GUETZLI_TPU_PAD", raising=False)
-    assert config.auto("pad", "cpu") is False
-    assert config.auto("pad", "cuda") == config.CUDA_AUTO["pad"]
+    assert config.pad() is None
     comp, _img, _jpg = _start("bees_d.png", padded=None)
     assert comp.geom is None and comp.xyb0.shape == (3, 63, 97)
     monkeypatch.setenv("GUETZLI_TPU_PAD", "1")
-    assert config.auto("pad", "cpu") and config.auto("pad", "cuda")
+    assert config.pad() is True
     comp, _img, _jpg = _start("bees_d.png", padded=None)
     assert (comp.geom.wp, comp.geom.hp) == (128, 64)
     assert comp.xyb0.shape == (3, 64, 128)
     monkeypatch.setenv("GUETZLI_TPU_PAD", "0")
-    assert not config.auto("pad", "cuda")
-    assert not config.auto("pad", "cpu")
+    assert config.pad() is False
+    comp, _img, _jpg = _start("bees_d.png", padded=None)
+    assert comp.geom is None
 
 
 def test_checkcuda_keeps_exact_geometry(monkeypatch):

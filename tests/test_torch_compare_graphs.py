@@ -231,8 +231,6 @@ def test_handles_in_flight_keep_their_results(monkeypatch):
 def test_an_encode_gives_the_eager_bytes(monkeypatch):
     from guetzli_tpu_torch.search.processor import (Params, ProcessStats,
                                                     process_rgb)
-    monkeypatch.setenv("GUETZLI_TPU_TREE_QUANT", "1")
-    monkeypatch.setenv("GUETZLI_TPU_SPARSE", "1")
     rgb, w, h = _image(40, 40)
     want = process_rgb(Params(), rgb, w, h, ProcessStats(), CPU)
     _graphed(monkeypatch)

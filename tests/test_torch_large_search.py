@@ -13,8 +13,9 @@ torch thread):
     lowered, an encode takes both host memory returns, under the
     return_memory span and counted as return_memory_calls, and writes
     the bytes of an encode that takes neither;
-  * an out-of-memory error in a compare, serial or pipelined, shows in
-    the recover span and oom_recoveries; a healthy encode's timings hold
+  * an out-of-memory error in the first compare, in a quant wave's fetch
+    or in a sparse back-end fetch shows in the recover span and
+    oom_recoveries, with the same bytes; a healthy encode's timings hold
     both spans at 0.0.
 """
 
@@ -37,9 +38,8 @@ TRIAL = cmp_mod.Comparator._QUANT_TRIAL_BYTES_PER_PIXEL
 
 
 def _tree_encode(monkeypatch):
-    """An encode with the quant tree on: (bytes, stats, the waves'
-    lengths as dispatched, every scored matrix's score)."""
-    monkeypatch.setenv("GUETZLI_TPU_TREE_QUANT", "1")
+    """An encode, whose quant search runs in waves: (bytes, stats, the
+    waves' lengths as dispatched, every scored matrix's score)."""
     waves, scores = [], {}
     real_dq = cmp_mod.Comparator.dispatch_quant_batch
     real_absorb = quant_tree.TreeQuantSearch.absorb
@@ -109,7 +109,6 @@ def test_wave_counters_count_the_waves_dispatched(uncapped):
 
 
 def test_corpus_driver_sums_the_search_counters(monkeypatch):
-    monkeypatch.setenv("GUETZLI_TPU_TREE_QUANT", "1")
     waves = []
     real_dq = cmp_mod.Comparator.dispatch_quant_batch
     monkeypatch.setattr(cmp_mod.Comparator, "dispatch_quant_batch",
@@ -166,14 +165,18 @@ def _fail(monkeypatch, name, calls):
     monkeypatch.setattr(cmp_mod.Comparator, name, wrapped)
 
 
+# The call of each fetch that fails: the first compare's (its only plain
+# fetch), and the second of the quant waves and of the 4:4:4 back end.
+FAILING_CALL = {"serial": 1, "waves": 2, "sparse": 2}
+
+
 @pytest.mark.parametrize("route,fetch", [
     ("serial", "fetch_compare_plain"),
-    ("pipelined", "fetch_compare_pure"),
+    ("waves", "fetch_quant_scores"),
+    ("sparse", "fetch_compare"),
 ])
 def test_oom_shows_in_the_recover_span(route, fetch, plain, monkeypatch):
-    if route == "pipelined":
-        monkeypatch.setenv("GUETZLI_TPU_PIPELINE", "1")
-    _fail(monkeypatch, fetch, {2})
+    _fail(monkeypatch, fetch, {FAILING_CALL[route]})
     stats = ProcessStats()
     assert api.encode_bytes(PNG, 95, stats=stats, device="cpu") == plain[0]
     assert stats.counters["oom_recoveries"] == 1

@@ -7,11 +7,13 @@ lockstep.py) on the CPU, one torch thread.
     and under GUETZLI_TPU_PALLAS=1 (mode 444p); the 4:2:0 cases are in
     test_torch_lockstep420.py, the combined zeroing call against JAX in
     test_torch_lockstep_csr.py;
-  * lockstep_select_quant_matrix against the JAX package's (exact
-    geometry, no speculation): the same decisions (best matrices,
-    dist_ok, iteration counts) with every trial's distance within the
-    2e-3 band of XLA's jitted FMA contraction (ROADMAP: the port equals
-    JAX op by op; jitted JAX differs by up to 2e-3 relative).
+  * the corpus quant search (the port's lockstep tree waves) against the
+    JAX package's lockstep rounds (exact geometry, its serial trials):
+    the same decisions (best matrices, dist_ok, iteration counts) and,
+    image by image, the same trials in the same order, every trial's
+    distance within the 2e-3 band of XLA's jitted FMA contraction
+    (ROADMAP: the port equals JAX op by op; jitted JAX differs by up to
+    2e-3 relative).
 """
 
 import numpy as np
@@ -35,6 +37,7 @@ from guetzli_tpu_torch.comparator import Comparator
 from guetzli_tpu_torch.io.png import read_png
 from guetzli_tpu_torch.parallel import lockstep
 from guetzli_tpu_torch.search import processor as proc_mod
+from guetzli_tpu_torch.search import quant_tree
 from guetzli_tpu_torch.search import state as st
 from guetzli_tpu_torch.search import zeroing as tz
 
@@ -105,26 +108,34 @@ def test_pallas_corpus_matches_serial(corpus, serial, monkeypatch):
 
 # -- the quant rounds against JAX ---------------------------------------
 
-def _trail(monkeypatch, cls):
-    """Records (image id, distance) after every _quant_resolve of `cls`."""
+def _trail(monkeypatch, side):
+    """Records (comparator id, distance) as each trial's distance is
+    adopted: after JAX's _quant_resolve, at the port's
+    set_quant_result."""
     trail = []
-    real = cls._quant_resolve
+    if side == "jax":
+        real = jproc.Processor._quant_resolve
 
-    def spy(self, *a, **k):
-        out = real(self, *a, **k)
-        trail.append((id(self), self.comparator.distance))
-        return out
-    monkeypatch.setattr(cls, "_quant_resolve", spy)
+        def spy(self, *a, **k):
+            out = real(self, *a, **k)
+            trail.append((id(self.comparator), self.comparator.distance))
+            return out
+        monkeypatch.setattr(jproc.Processor, "_quant_resolve", spy)
+        return trail
+    real_set = Comparator.set_quant_result
+
+    def spy_set(self, *a):
+        real_set(self, *a)
+        trail.append((id(self), self.distance))
+    monkeypatch.setattr(Comparator, "set_quant_result", spy_set)
     return trail
 
 
 def test_quant_rounds_vs_jax(monkeypatch):
     monkeypatch.setenv("GUETZLI_TPU_PAD", "0")
-    monkeypatch.setenv("GUETZLI_TPU_SPECULATE", "0")
     sides = {}
     for side in ("jax", "port"):
-        trail = _trail(monkeypatch, jproc.Processor if side == "jax"
-                       else proc_mod.Processor)
+        trail = _trail(monkeypatch, side)
         procs, jpgs, best_qs, imgs = [], [], [], []
         for name in NAMES:
             data = (FIXTURES / name).read_bytes()
@@ -149,18 +160,22 @@ def test_quant_rounds_vs_jax(monkeypatch):
             jpgs.append(jpg)
             imgs.append(s.CoeffImage.from_jpeg(jpg))
         select = (jlockstep.lockstep_select_quant_matrix if side == "jax"
-                  else lockstep.lockstep_select_quant_matrix)
+                  else quant_tree.lockstep_select_quant_matrix_tree)
         oks = select(procs, jpgs, [False] * len(NAMES), best_qs, imgs)
-        ids = {id(p): i for i, p in enumerate(procs)}
+        ids = {id(p.comparator): i for i, p in enumerate(procs)}
+        # Each image's trials in its own order: JAX's rounds interleave
+        # the images a trial at a time, the port's a wave at a time.
         sides[side] = (oks, best_qs,
                        [p.stats.counters["iters"] for p in procs],
-                       [(ids[k], d) for k, d in trail])
+                       [[d for k, d in trail if ids[k] == i]
+                        for i in range(len(procs))])
     (j_ok, j_q, j_iters, j_trail), (p_ok, p_q, p_iters, p_trail) = \
         sides["jax"], sides["port"]
     assert p_ok == j_ok
     for a, b in zip(p_q, j_q):
         np.testing.assert_array_equal(a, b)
     assert p_iters == j_iters
-    assert [i for i, _d in p_trail] == [i for i, _d in j_trail]
-    np.testing.assert_allclose([d for _i, d in p_trail],
-                               [d for _i, d in j_trail], rtol=FMA_BAND)
+    assert [len(t) for t in p_trail] == [len(t) for t in j_trail] \
+        == p_iters
+    for p_d, j_d in zip(p_trail, j_trail):
+        np.testing.assert_allclose(p_d, j_d, rtol=FMA_BAND)

@@ -61,6 +61,52 @@ def _close(got, want, rtol, atol):
                                atol=atol)
 
 
+def _block_weights_np(direction, max_block_dist, target, factor, distmap):
+    """The back-end block weights of one radius in numpy
+    (butteraugli_comparator.cc:169-233), at `target` (the comparator's
+    target distance times the multiplier), the oracle of the device
+    form's radii."""
+    h, w = distmap.shape
+    sizex = sizey = 8 * factor
+    bw = (w + sizex - 1) // sizex
+    bh = (h + sizey - 1) // sizey
+    pad = np.zeros((bh * sizey, bw * sizex), dtype=np.float32)
+    pad[:h, :w] = np.asarray(distmap, dtype=np.float32)
+    max_dist = pad.reshape(bh, sizey, bw, sizex).max(axis=(1, 3))
+
+    r = max_block_dist
+    local = max_dist
+    for _ in range(r):
+        p = np.pad(local, 1, mode='edge')
+        local = np.maximum.reduce([
+            p[0:-2, 0:-2], p[0:-2, 1:-1], p[0:-2, 2:],
+            p[1:-1, 0:-2], p[1:-1, 1:-1], p[1:-1, 2:],
+            p[2:, 0:-2], p[2:, 1:-1], p[2:, 2:]])
+    max_local = np.maximum(local, target)
+
+    weight = np.zeros((bh, bw), dtype=np.float32)
+    if direction > 0:
+        ok = (max_dist <= target) & (max_local <= 1.1 * target)
+        weight[ok] = 1.0
+    else:
+        k_local_max_weight = 0.5
+        src = max_dist > ((1 - k_local_max_weight) * target
+                          + k_local_max_weight * max_local)
+        # weight = 1/(dmin+1), dmin = Chebyshev distance to the nearest
+        # src block within radius r.
+        reach = src.copy()
+        for dist in range(r + 1):
+            contrib = np.float32(1.0 / (dist + 1.0))
+            weight = np.maximum(weight, np.where(reach, contrib, 0.0))
+            if dist < r:
+                p = np.pad(reach, 1, mode='constant')
+                reach = (p[0:-2, 0:-2] | p[0:-2, 1:-1] | p[0:-2, 2:]
+                         | p[1:-1, 0:-2] | p[1:-1, 1:-1] | p[1:-1, 2:]
+                         | p[2:, 0:-2] | p[2:, 1:-1] | p[2:, 2:])
+    return weight.reshape(-1)
+
+
+
 def _lin(w, h, which=0):
     rgb = load_u8(f"{w}x{h}_rgb{which}.u8", (h * w, 3))
     lut = jconsts.SRGB_TO_LINEAR.astype(np.float32)
@@ -288,8 +334,9 @@ def test_block_weights(direction, factor):
     np.testing.assert_array_equal(
         w4, jcomp.weights_all_radii(direction, 0.97, factor, factor))
     for rblock in range(1, 5):
-        want = comp.compute_block_error_adjustment_weights(
-            direction, rblock, 0.97, factor, factor, distmap)
+        want = _block_weights_np(direction, rblock,
+                                 comp.target_distance * 0.97, factor,
+                                 distmap)
         np.testing.assert_allclose(w4[rblock - 1], want, atol=1e-6)
 
 

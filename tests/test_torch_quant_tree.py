@@ -1,7 +1,7 @@
 """The port's quant search route (guetzli_tpu_torch/search/quant_tree.py,
-Comparator.dispatch_quant_batch, the speculative loop) on the CPU, one
-torch thread, on bees96x64.png, bees97x63.png and, for 4:2:0,
-tests/corpus/bees_d-420.jpg at q95:
+Comparator.dispatch_quant_batch) on the CPU, one torch thread, on
+bees96x64.png, bees97x63.png and, for 4:2:0, tests/corpus/bees_d-420.jpg
+at q95:
 
   * the device requantize equals the JAX package's and the host's
     bit for bit on seeded int32 coefficients and matrices;
@@ -9,14 +9,14 @@ tests/corpus/bees_d-420.jpg at q95:
     port's single compares bit for bit, and the JAX package's waves
     (its padded _quant_batch_444_dyn / _420_dyn) within the 2e-3 band
     of XLA's jitted FMA contraction;
-  * the tree and the speculative loop each give the serial loop's
-    result, best matrix, iteration count, output bytes and score; the
-    lockstep tree over two images gives each image's serial tree;
+  * the tree gives the result, best matrix, iteration count, output
+    bytes and score of the serial loop
+    (Processor.select_quant_matrix_serial); the lockstep tree over two images gives each image's serial
+    tree; the default encode runs the waves and writes the bytes of an
+    encode through the serial loop;
   * an out-of-memory error in a wave is replayed with the same result;
     a sticky CUDA error in a wave propagates, through the encoder's
-    resilience too;
-  * the knobs: forced either way through GUETZLI_TPU_TREE_QUANT and
-    _SPECULATE on both devices, auto off on the CPU.
+    resilience too.
 """
 
 import numpy as np
@@ -33,7 +33,7 @@ from guetzli_tpu.io.png import read_png as jread_png
 from guetzli_tpu.search import processor as jproc
 from guetzli_tpu.search import state as jst
 
-from guetzli_tpu_torch import api, config, consts
+from guetzli_tpu_torch import api, consts
 from guetzli_tpu_torch import comparator as cmp_mod
 from guetzli_tpu_torch.codec import reader
 from guetzli_tpu_torch.codec.encoder import encode_rgb_to_jpeg
@@ -80,11 +80,9 @@ def _outcome(proc, ok, best_q):
             proc.final.jpeg_data, proc.final.score)
 
 
-def _serial(name, monkeypatch):
-    monkeypatch.setenv("GUETZLI_TPU_TREE_QUANT", "0")
-    monkeypatch.setenv("GUETZLI_TPU_SPECULATE", "0")
+def _serial(name):
     proc, jpg, best_q, img, ds = _setup(name)
-    ok = proc.select_quant_matrix(jpg, ds, best_q, img)
+    ok = proc.select_quant_matrix_serial(jpg, ds, best_q, img)
     return _outcome(proc, ok, best_q)
 
 
@@ -144,28 +142,13 @@ def test_wave_scores_equal_single_compares(name):
 
 
 @pytest.mark.parametrize("name", PNGS + ("420",))
-def test_tree_matches_serial(name, monkeypatch):
-    serial = _serial(name, monkeypatch)
+def test_tree_matches_serial(name):
+    serial = _serial(name)
     proc, jpg, best_q, img, ds = _setup(name)
     ok = quant_tree.select_quant_matrix_tree(proc, jpg, ds, best_q, img)
     assert _outcome(proc, ok, best_q) == serial
     assert proc.stats.counters["quant_waves"] >= 2
     assert proc.stats.counters["quant_trials"] == serial[2]
-
-
-@pytest.mark.parametrize("name", PNGS)
-def test_speculation_matches_serial(name, monkeypatch):
-    serial = _serial(name, monkeypatch)
-    monkeypatch.setenv("GUETZLI_TPU_SPECULATE", "1")
-    proc, jpg, best_q, img, ds = _setup(name)
-    calls = []
-    real = proc._quant_eval_start
-    monkeypatch.setattr(proc, "_quant_eval_start",
-                        lambda *a: calls.append(1) or real(*a))
-    ok = proc.select_quant_matrix(jpg, ds, best_q, img)
-    assert _outcome(proc, ok, best_q) == serial
-    # Both successors were started: more trials dispatched than logged.
-    assert len(calls) > serial[2]
 
 
 def test_lockstep_tree_matches_each_serial_tree():
@@ -197,7 +180,7 @@ def _fail_waves(monkeypatch, exc, calls):
 
 def test_wave_oom_is_replayed(monkeypatch):
     name = PNGS[0]
-    serial = _serial(name, monkeypatch)
+    serial = _serial(name)
     released = []
     from guetzli_tpu_torch import runtime
     monkeypatch.setattr(runtime, "release_memory",
@@ -214,38 +197,30 @@ def test_sticky_error_in_a_wave_propagates(monkeypatch):
     proc, jpg, best_q, img, ds = _setup(PNGS[0])
     with pytest.raises(RuntimeError, match="illegal memory access"):
         quant_tree.select_quant_matrix_tree(proc, jpg, ds, best_q, img)
-    # Through the encoder: the route is forced on, and the search's
-    # resilience lets a sticky error through instead of emitting the
-    # pre-search output.
+    # Through the encoder, whose default route is the waves: the
+    # search's resilience lets a sticky error through instead of emitting
+    # the pre-search output.
     monkeypatch.undo()
-    monkeypatch.setenv("GUETZLI_TPU_TREE_QUANT", "1")
     _fail_waves(monkeypatch, RuntimeError(STICKY), {2})
     with pytest.raises(RuntimeError, match="illegal memory access"):
         api.encode_bytes((FIXTURES / PNGS[0]).read_bytes(), 95,
                          device="cpu")
 
 
-def test_knobs_force_either_way_on_both_devices(monkeypatch):
-    for knob in ("TREE_QUANT", "SPECULATE"):
-        monkeypatch.delenv("GUETZLI_TPU_" + knob, raising=False)
-    for knob in ("tree_quant", "speculate"):
-        assert config.auto(knob, torch.device("cpu")) is False
-        assert config.auto(knob, torch.device("cuda")) \
-            == config.CUDA_AUTO[knob]
-        for value, want in (("1", True), ("0", False)):
-            monkeypatch.setenv("GUETZLI_TPU_" + knob.upper(), value)
-            for dev in ("cpu", "cuda"):
-                assert config.auto(knob, torch.device(dev)) is want
-        monkeypatch.delenv("GUETZLI_TPU_" + knob.upper())
-
-
 def test_tree_encode_runs_waves_and_keeps_the_bytes(monkeypatch):
     data = JPEG420.read_bytes()
-    monkeypatch.delenv("GUETZLI_TPU_TREE_QUANT", raising=False)
-    base_stats = ProcessStats()
-    base = api.encode_bytes(data, 95, stats=base_stats, device="cpu")
-    assert "quant_waves" not in base_stats.counters
-    monkeypatch.setenv("GUETZLI_TPU_TREE_QUANT", "1")
     stats = ProcessStats()
-    assert api.encode_bytes(data, 95, stats=stats, device="cpu") == base
+    out = api.encode_bytes(data, 95, stats=stats, device="cpu")
     assert stats.counters["quant_waves"] >= 2
+    serial_calls = []
+    real = Processor.select_quant_matrix_serial
+    monkeypatch.setattr(Processor, "select_quant_matrix_serial",
+                        lambda self, *a: serial_calls.append(1)
+                        or real(self, *a))
+    monkeypatch.setattr(cmp_mod.Comparator, "supports_quant_batch",
+                        lambda self: False)
+    serial_stats = ProcessStats()
+    assert api.encode_bytes(data, 95, stats=serial_stats,
+                            device="cpu") == out
+    assert "quant_waves" not in serial_stats.counters
+    assert serial_calls == [1]

@@ -3,9 +3,9 @@ entry points' edges, on the CPU, one torch thread.
 
   * the predicates: only torch.cuda.OutOfMemoryError is recoverable; a
     RuntimeError whose first line names a CUDA error is sticky;
-  * an OutOfMemoryError injected into the fetches (a quant trial, a
-    back-end iteration, the lockstep corpus's combined fetch and its
-    zeroing call) is replayed after the comparator's device state is
+  * an OutOfMemoryError injected into the fetches (a quant wave, a
+    back-end iteration, the lockstep corpus's first compares, its
+    combined fetch and its zeroing call) is replayed after the comparator's device state is
     rebuilt on the same device, and the bytes are those of a run without
     it; a sticky error propagates, through the serial search's resilience
     and through the corpus encoders alike;
@@ -92,8 +92,8 @@ def _recoveries(monkeypatch):
 def test_oom_in_serial_fetches_is_replayed(corpus, serial, monkeypatch):
     seen = _recoveries(monkeypatch)
     oom = torch.cuda.OutOfMemoryError(OOM)
-    plain = _fail(monkeypatch, cmp_mod.Comparator, "fetch_compare_plain",
-                  oom, {3})
+    waves = _fail(monkeypatch, cmp_mod.Comparator, "fetch_quant_scores",
+                  oom, {2})
     back = _fail(monkeypatch, cmp_mod.Comparator, "fetch_compare", oom,
                  {2, 3})
     stats = ProcessStats()
@@ -101,13 +101,13 @@ def test_oom_in_serial_fetches_is_replayed(corpus, serial, monkeypatch):
     assert api.encode_bytes(data, 95, stats=stats, device="cpu") \
         == serial[name]
     assert stats.search_error is None
-    assert plain[0] > 3 and back[0] > 3 and len(seen) == 3
+    assert waves[0] > 2 and back[0] > 3 and len(seen) == 3
 
 
 def test_oom_in_lockstep_is_replayed(corpus, serial, monkeypatch):
     seen = _recoveries(monkeypatch)
     oom = torch.cuda.OutOfMemoryError(OOM)
-    _fail(monkeypatch, cmp_mod.Comparator, "fetch_compare_plain", oom, {4})
+    _fail(monkeypatch, cmp_mod.Comparator, "fetch_compare_plain", oom, {2})
     many = _fail(monkeypatch, cmp_mod, "fetch_compare_many", oom, {1, 3})
     zero = _fail(monkeypatch, tz, "compute_zeroing_csr", oom, {1})
     # The first image's fetch after the combined fetch's failure fails
@@ -127,12 +127,13 @@ def test_oom_in_lockstep_is_replayed(corpus, serial, monkeypatch):
 def test_sticky_error_propagates(corpus, monkeypatch):
     seen = _recoveries(monkeypatch)
     sticky = RuntimeError(STICKY)
-    # Inside the search (after the first compare): the serial resilience
-    # must not swallow it, nor the corpus record it and go on.
+    # Inside the search (a quant wave, after the first compare): the
+    # serial resilience must not swallow it, nor the corpus record it and
+    # go on.
     for encode in (lambda: api.encode_bytes(corpus[0][1], 95, device="cpu"),
                    lambda: api.encode_corpus(corpus, 95, device="cpu")):
         with monkeypatch.context() as m:
-            _fail(m, cmp_mod.Comparator, "fetch_compare_plain", sticky, {3})
+            _fail(m, cmp_mod.Comparator, "fetch_quant_scores", sticky, {2})
             with pytest.raises(RuntimeError, match="illegal memory access"):
                 encode()
     with monkeypatch.context() as m:
@@ -146,8 +147,8 @@ def test_other_search_errors_keep_the_resilience(corpus, monkeypatch):
     """A search error that is not a CUDA error still ends in the best
     output so far, with stats.search_error set (processor.cc:965-977)."""
     name, data = corpus[0]
-    _fail(monkeypatch, cmp_mod.Comparator, "fetch_compare_plain",
-          ValueError("bad trial"), {3})
+    _fail(monkeypatch, cmp_mod.Comparator, "fetch_quant_scores",
+          ValueError("bad trial"), {2})
     stats = ProcessStats()
     out = api.encode_bytes(data, 95, stats=stats, device="cpu")
     assert out[:2] == b"\xff\xd8" and "bad trial" in stats.search_error

@@ -10,6 +10,7 @@
 """
 
 import contextlib
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -148,17 +149,29 @@ def test_span_accumulates_and_takes_no_dict():
     assert list(walls) == ["a"] and 0.01 <= walls["a"] < 0.5
 
 
-def test_a_prefetch_thread_charges_nothing():
+def test_nested_dispatch_spans_open_once_per_thread(monkeypatch):
+    """A dispatch site inside another's span opens no second span on its
+    thread; a dispatch on another thread (a corpus pool's) opens its
+    own."""
+    opened = []
+    real = spans.timed
+    monkeypatch.setattr(spans, "timed", lambda walls, name: opened.append(
+        (threading.current_thread().name, name)) or real(walls, name))
     walls = {}
-    with ThreadPoolExecutor(1, initializer=cmp_mod.prefetch_thread) as ex:
-        def wait():
-            with cmp_mod.wait_span(walls), cmp_mod.dispatch_span(walls):
-                pass
-        ex.submit(wait).result()
-    assert walls == {}
+
+    def other():
+        with cmp_mod.dispatch_span(walls), cmp_mod.dispatch_span(walls):
+            pass
+    with cmp_mod.dispatch_span(walls):
+        with cmp_mod.dispatch_span(walls):
+            pass
+        with ThreadPoolExecutor(1) as ex:
+            ex.submit(other).result()
+    assert [n for _t, n in opened] == ["compare_dispatch"] * 2
+    assert len({t for t, _n in opened}) == 2
     with cmp_mod.wait_span(walls):
         pass
-    assert list(walls) == ["compare_wait"]
+    assert sorted(walls) == ["compare_dispatch", "compare_wait"]
 
 
 def test_profiler_flag_is_off_outside_a_session():

@@ -1,19 +1,20 @@
 """The port's device-resident back-end state with sparse coefficient
 deltas (Comparator.backend_sync_full, dispatch_compare_sparse_coeffs,
-dispatch_compare_sparse; GUETZLI_TPU_SPARSE) on the CPU, one torch
-thread:
+dispatch_compare_sparse), the 4:4:4 back end's default route, on the
+CPU, one torch thread:
 
   * a seeded wave of 500 flips, unchunked and through scatter-only
     chunks (tiny sizes, as tests/test_sparse_chunks.py sets them for the
     JAX package), equals a full compare of the same host state bit for
     bit: distance and [4, NB] weights; so does the per-block form;
-  * full encodes with GUETZLI_TPU_SPARSE=1 equal =0 byte for byte, with
+  * default encodes equal encodes with the whole-plane back end (forced
+    by a Comparator.supports_sparse that says no) byte for byte, with
     the native flip loop's triplets and with the triplets rebuilt after
     the Python flip loop; the lockstep corpus on 3 threads equals
     serial;
   * an out-of-memory error in a sparse fetch is replayed (the resident
     state re-synced from the host image) with the same bytes; a sticky
-    CUDA error propagates; the knob forces either way on both devices.
+    CUDA error propagates.
 """
 
 import numpy as np
@@ -23,7 +24,7 @@ import torch
 from tests.conftest import FIXTURES
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
-from guetzli_tpu_torch import api, config, consts, native, runtime
+from guetzli_tpu_torch import api, consts, native, runtime
 from guetzli_tpu_torch import comparator as cmp_mod
 from guetzli_tpu_torch.codec.encoder import encode_rgb_to_jpeg
 from guetzli_tpu_torch.io.png import read_png
@@ -97,9 +98,15 @@ def test_sparse_wave_equals_full_compare(name, chunk, monkeypatch):
     np.testing.assert_array_equal(got[1], want[1])
 
 
-def _encode(data, sparse, monkeypatch, stats=None):
-    monkeypatch.setenv("GUETZLI_TPU_SPARSE", sparse)
+def _encode(data, stats=None):
     return api.encode_bytes(data, 95, stats=stats, device="cpu")
+
+
+def _dense(monkeypatch):
+    """The whole-plane back end: no comparator takes the resident
+    state."""
+    monkeypatch.setattr(cmp_mod.Comparator, "supports_sparse",
+                        lambda self, img, comp_mask: False)
 
 
 @pytest.mark.parametrize("name", PNGS)
@@ -109,10 +116,12 @@ def test_sparse_encode_keeps_the_bytes(name, monkeypatch):
     real = cmp_mod.Comparator.dispatch_compare_sparse_coeffs
     monkeypatch.setattr(cmp_mod.Comparator, "dispatch_compare_sparse_coeffs",
                         lambda self, *a: calls.append(1) or real(self, *a))
-    plain = _encode(data, "0", monkeypatch)
+    with pytest.MonkeyPatch.context() as m:
+        _dense(m)
+        plain = _encode(data)
     assert not calls
     stats = ProcessStats()
-    assert _encode(data, "1", monkeypatch, stats) == plain
+    assert _encode(data, stats) == plain
     assert len(calls) == stats.counters["backend_iters"] > 0
 
 
@@ -125,16 +134,17 @@ def test_sparse_with_the_python_flip_loop(monkeypatch):
     params = Params()
     params.butteraugli_target = consts.butteraugli_score_for_quality(95)
     monkeypatch.setattr(native, "get_lib", lambda: None)
-    monkeypatch.setenv("GUETZLI_TPU_SPARSE", "0")
-    want = process_rgb(params, sub, 48, 40, ProcessStats(), "cpu")
-    monkeypatch.setenv("GUETZLI_TPU_SPARSE", "1")
+    with pytest.MonkeyPatch.context() as m:
+        _dense(m)
+        want = process_rgb(params, sub, 48, 40, ProcessStats(), "cpu")
     assert process_rgb(params, sub, 48, 40, ProcessStats(), "cpu") == want
 
 
-def test_sparse_lockstep_corpus_equals_serial(monkeypatch):
+def test_sparse_lockstep_corpus_equals_serial():
     corpus = [(n, (FIXTURES / n).read_bytes()) for n in PNGS]
-    serial = {n: _encode(d, "0", monkeypatch) for n, d in corpus}
-    monkeypatch.setenv("GUETZLI_TPU_SPARSE", "1")
+    with pytest.MonkeyPatch.context() as m:
+        _dense(m)
+        serial = {n: _encode(d) for n, d in corpus}
     assert dict(lockstep.encode_corpus_lockstep(corpus, 95, threads=3,
                                                 device="cpu")) == serial
 
@@ -155,7 +165,7 @@ def _fail(monkeypatch, exc, calls):
 
 def test_oom_in_a_sparse_fetch_is_replayed(monkeypatch):
     data = (FIXTURES / PNGS[0]).read_bytes()
-    want = _encode(data, "1", monkeypatch)
+    want = _encode(data)
     released, syncs = [], []
     monkeypatch.setattr(runtime, "release_memory",
                         lambda device, what: released.append(what))
@@ -165,7 +175,7 @@ def test_oom_in_a_sparse_fetch_is_replayed(monkeypatch):
                         or real_sync(self, img))
     n = _fail(monkeypatch, torch.cuda.OutOfMemoryError(OOM), {2, 5, 6})
     stats = ProcessStats()
-    assert _encode(data, "1", monkeypatch, stats) == want
+    assert _encode(data, stats) == want
     assert stats.search_error is None
     # One sync per pass, one per replay.
     assert len(released) == 3 and len(syncs) == 1 + 3 and n[0] > 6
@@ -174,15 +184,4 @@ def test_oom_in_a_sparse_fetch_is_replayed(monkeypatch):
 def test_sticky_error_in_a_sparse_fetch_propagates(monkeypatch):
     _fail(monkeypatch, RuntimeError(STICKY), {3})
     with pytest.raises(RuntimeError, match="illegal memory access"):
-        _encode((FIXTURES / PNGS[0]).read_bytes(), "1", monkeypatch)
-
-
-def test_sparse_knob_on_both_devices(monkeypatch):
-    monkeypatch.delenv("GUETZLI_TPU_SPARSE", raising=False)
-    assert config.auto("sparse", torch.device("cpu")) is False
-    assert config.auto("sparse", torch.device("cuda")) \
-        == config.CUDA_AUTO["sparse"]
-    for value, want in (("1", True), ("0", False)):
-        monkeypatch.setenv("GUETZLI_TPU_SPARSE", value)
-        for dev in ("cpu", "cuda"):
-            assert config.auto("sparse", torch.device(dev)) is want
+        _encode((FIXTURES / PNGS[0]).read_bytes())

@@ -1,4 +1,5 @@
-"""The JAX package's zeroing routes, opt-outs and debug knob in the port.
+"""The JAX package's zeroing routes, the NO_NATIVE opt-out and the debug
+knob in the port.
 
   * The readers of guetzli_tpu_torch/config.py parse each variable as
     guetzli_tpu/config.current() does.
@@ -19,11 +20,11 @@
     candidates (op-by-op JAX costs ~0.6 s a greedy step): the CSR bit for
     bit, and for LANES=0 (XLA's dot and PyTorch's matmul round the DFT
     differently) the same offsets and indices with errors within 1e-5.
-  * Opt-outs on a 48x40 bees crop at q95 (tests/test_e2e.py:207-240's
-    setup): NO_INCR_SAVE, NO_HISTO_REUSE and NO_NATIVE give the default's
-    bytes; ZEROING_DEBUG=1 writes its stage lines and the same bytes;
-    ZEROING_FUSED=0 and STAGED_ZEROING=0 take their routes (the fused
-    loop, and the device CSR, refused) and give the same bytes.
+  * On a 48x40 bees crop at q95 (tests/test_e2e.py:207-240's setup):
+    NO_NATIVE gives the default's bytes; ZEROING_DEBUG=1 writes its
+    stage lines and the same bytes; ZEROING_FUSED=0 and STAGED_ZEROING=0
+    take their routes (the fused loop, and the device CSR, refused) and
+    give the same bytes.
 """
 
 import numpy as np
@@ -62,8 +63,7 @@ T = torch.as_tensor
 CPU = torch.device("cpu")
 CORPUS = FIXTURES.parent / "corpus"
 KNOBS = ("ZEROING_FUSED", "STAGED_ZEROING", "LANES", "PALLAS", "NO_NATIVE",
-         "NO_INCR_SAVE", "NO_HISTO_REUSE", "ZEROING_DEBUG", "EXACT_LUT",
-         "LANE_SAFE", "SEL_MATMUL")
+         "ZEROING_DEBUG", "EXACT_LUT", "LANE_SAFE", "SEL_MATMUL")
 # The routes that must give the fused route's CSR arrays bit for bit.
 EXACT_ROUTES = {"staged": {"ZEROING_FUSED": "0"},
                 "full_batch": {"STAGED_ZEROING": "0"},
@@ -87,8 +87,6 @@ def test_readers_parse_as_jax(value, monkeypatch):
              "STAGED_ZEROING": ("staged_zeroing", config.staged_zeroing),
              "LANES": ("lanes", config.lanes),
              "NO_NATIVE": ("native", config.native),
-             "NO_INCR_SAVE": ("incr_save", config.incr_save),
-             "NO_HISTO_REUSE": ("histo_reuse", config.histo_reuse),
              "ZEROING_DEBUG": ("zeroing_debug", config.zeroing_debug)}
     _set(monkeypatch, {} if value is None else dict.fromkeys(pairs, value))
     want = jconfig.current()
@@ -315,9 +313,7 @@ def crop_default(crop):
     return process_rgb(params, sub, 48, 40, ProcessStats(), "cpu")
 
 
-OPT_OUTS = {"no_incr_save": {"NO_INCR_SAVE": "1"},
-            "no_histo_reuse": {"NO_HISTO_REUSE": "1"},
-            "no_native": {"NO_NATIVE": "1"}}
+OPT_OUTS = {"no_native": {"NO_NATIVE": "1"}}
 
 
 @pytest.mark.parametrize("name", sorted(OPT_OUTS))
