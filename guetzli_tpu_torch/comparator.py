@@ -32,19 +32,25 @@ PyTorch runs eagerly and CUDA work is queued asynchronously, so the
 dispatch_* / fetch_* pairs keep the JAX package's structure: a dispatch
 queues the device work, its fetch reads the results on the host. On a
 CUDA device (and not under a mesh) the compares run as CUDA graphs,
-captured once and replayed (compare_graphs.py), keyed by what fixes
-their op sequence and shapes (and the knobs that choose ops):
-"plain", the whole-image compare of a 4:4:4 or 4:2:0 coefficient image
-to its flat score and diffmap, which the plain compare (the first
-compare), the compare + weights of a coefficient image and the resident
-state's compare share (the resident state is copied into the graph's
-input); "weights", the block weights
-of such a compare's diffmap, by direction, float32 target and grid
-factors; and "quant", a wave (its size in its input's shape). The
-CompareBatcher's stacks and the banded compares stay eager. `counters`
-(a dict; the serial search sets its ProcessStats.counters) counts each
-dispatch as compare_graph_captures, compare_graph_replays or
-compare_eager.
+captured once and replayed (compare_graphs.py), shared by every
+comparator of the device at one geometry (the image's size, and its
+bucket when padded) and keyed by what else fixes their op sequence and
+shapes (and the knobs that choose ops): "plain", the whole-image
+compare of a 4:4:4 or 4:2:0 coefficient image to its flat score and
+diffmap, by its block grids, which the plain compare, the compare +
+weights of a coefficient image and the resident state's compare share
+(the resident state is copied into the graph's input); "weights", the
+block weights of such a compare's diffmap, by direction, float32
+target and grid factors; and "quant", a wave (its size in its input's
+shape). The compare and wave graphs take the image's own device state
+(_state: the original's opsin, and on a bucket its size and border
+scales) as inputs beside the coefficients. The CompareBatcher's stacks
+and the banded compares stay eager. `counters` (a dict; the serial
+search sets its ProcessStats.counters) counts each dispatch as
+compare_graph_captures, compare_graph_replays or compare_eager, the
+replays of graphs another comparator captured also as
+compare_graph_shared, and the graphs a capture evicted as
+compare_graph_evictions.
 
 Two spans (spans.py) time them on the host, into the comparator's
 `timings` dict (None: the profiler's trace only):
@@ -335,6 +341,12 @@ def _broadcast_rows(b, xyb0, w, h, sc):
              for k, (sx, sy) in sc.items()})
 
 
+def _row(xyb0, w, h, sc_flat, wp, hp):
+    """(xyb0 [3, 1, Hp, Wp], w, h, sc): one padded image's state
+    (Comparator._state) as a stack of one."""
+    return xyb0[:, None], w, h, split_scales(sc_flat[None], wp, hp)
+
+
 def _pad_rows_dev(a, real, nbp):
     """Rows of `a` [NB, ...] placed at rows `real` (an int64 index on a's
     device) of a zero [nbp, ...] array: pad_blocks on the device (JAX
@@ -561,7 +573,9 @@ class Comparator:
         # Dispatches by how they ran (module docstring).
         self.counters = {}
         self._graphs = compare_graphs.CompareGraphs(
-            self.device, self.device.type == "cuda" and self.mesh is None)
+            self.device, self.device.type == "cuda" and self.mesh is None,
+            (width, height) + ((self.geom.wp, self.geom.hp) if padded
+                               else ()))
         self.xyb0 = self._original_opsin() if xyb0 is None else xyb0
         self.distance = 0.0
         self.distmap = None
@@ -604,9 +618,12 @@ class Comparator:
         """This image's border scales as one row (split_scales)."""
         return split_scales(self._sc_flat[None], self.geom.wp, self.geom.hp)
 
-    def _row(self):
-        """(xyb0 [3, 1, Hp, Wp], w, h, sc): this image as a stack of one."""
-        return self.xyb0[:, None], self._w, self._h, self._sc()
+    def _state(self):
+        """The image's device state a compare reads: (xyb0,), and on a
+        bucket (xyb0, w, h, sc_flat)."""
+        if self.geom is None:
+            return (self.xyb0,)
+        return self.xyb0, self._w, self._h, self._sc_flat
 
     def _pad(self, comp, gbwp, gbhp):
         """A component's coefficients [NB, 64] on a padded grid."""
@@ -631,9 +648,9 @@ class Comparator:
         or start_block_comparisons rebuilds, and the back end's resident
         coefficients, which a replay re-syncs from the host image. The
         search state lives on the host, so a replayed dispatch gives the
-        same result. The compare graphs are dropped: the next use of each
-        key captures again."""
-        self._graphs.drop()
+        same result. The device's compare graphs are dropped: the next
+        use of each key captures again."""
+        compare_graphs.drop(self.device)
         self.xyb0 = self._original_opsin()
         self.distmap = None
         self._dev_coeffs = None
@@ -646,20 +663,25 @@ class Comparator:
         compare_graphs.count(self.counters, mode)
 
     def _graph_run(self, key, fn, inputs):
-        """(fn(*inputs), how it ran) by the compare graph of `key` and the
-        knobs that choose the chain's ops (compare_graphs.py)."""
+        """(fn(*inputs), how it ran) by the compare graph of this
+        comparator's geometry, `key` and the knobs that choose the
+        chain's ops (compare_graphs.py)."""
         key += (config.lane_safe(), config.exact_lut(), config.sel_matmul())
-        return self._graphs.run(key, fn, inputs, self.timings)
+        return self._graphs.run(key, fn, inputs, self.timings, self.counters)
 
-    def _flat_compare(self, kind, compare, inputs):
-        """(the flat [1 + diffmap pixels] score and diffmap of
-        compare(*inputs), how it ran): the graph of ("plain", kind),
-        which the plain compare, the compare + weights of a coefficient
-        image and the resident compare share."""
-        def flat(*planes):
-            score, dmap = compare(*planes)
+    def _flat_compare(self, kind, compare, planes):
+        """(the flat [1 + diffmap pixels] score and diffmap of a compare
+        of `planes`, how it ran): the graph of ("plain", kind, grid) for
+        compare = _compare_fn's (fn, grid), which the plain compare, the
+        compare + weights of a coefficient image and the resident
+        compare share."""
+        fn, grid = compare
+
+        def flat(*args):
+            score, dmap = fn(*args)
             return (torch.cat([score.reshape(1), dmap.reshape(-1)]),)
-        (out,), mode = self._graph_run(("plain", kind), flat, inputs)
+        (out,), mode = self._graph_run(("plain", kind) + grid, flat,
+                                       tuple(planes) + self._state())
         return out, mode
 
     def _kind(self, img):
@@ -677,25 +699,31 @@ class Comparator:
         return tuple(c.coeffs for c in img.comps)
 
     def _compare_fn(self, img):
-        """planes on the device (_planes) -> (score, diffmap) of this
-        comparator's single compare."""
+        """(fn, grid): fn(*planes on the device (_planes), *_state()) ->
+        (score, diffmap) of this comparator's single compare, reading
+        nothing of the comparator; grid, the block grids it reads
+        besides the geometry."""
         if self.geom is not None:
             kind, wp, hp = self._kind(img), self.geom.wp, self.geom.hp
+            n = 1 if kind == "444" else 3
 
-            def padded(*planes):
+            def padded(*args):
+                planes, state = args[:n], args[n:]
                 coeffs = planes[0][:, None] if kind == "444" else tuple(
                     p[None] for p in planes)
-                score, dmap = _compare_dyn(kind, coeffs, *self._row(), wp,
-                                           hp)
+                score, dmap = _compare_dyn(kind, coeffs,
+                                           *_row(*state, wp, hp), wp, hp)
                 return score[0], dmap[0]
-            return padded
+            return padded, ()
         w, h = self.width, self.height
         if img.is_444():
-            return lambda c: _full_compare(c, self.xyb0, img.bw, img.bh, w,
-                                           h)
+            bw, bh = img.bw, img.bh
+            return (lambda c, xyb0: _full_compare(c, xyb0, bw, bh, w, h),
+                    (bw, bh))
         y, u, _v = img.comps
-        return lambda *p: _full_compare_420(*p, self.xyb0, y.bw, y.bh, u.bw,
-                                            u.bh, w, h)
+        grid = (y.bw, y.bh, u.bw, u.bh)
+        return (lambda yc, uc, vc, xyb0: _full_compare_420(
+            yc, uc, vc, xyb0, *grid, w, h), grid)
 
     def _dmap_shape(self):
         g = self.geom
@@ -832,21 +860,23 @@ class Comparator:
         q = np.stack([np.asarray(x, np.int32).reshape(3, 64) for x in qs])
         self.compares += len(qs)
         kind, planes, grid = base
+        n = len(planes)
         if self.geom is not None:
             fn = _quant_scores_444_dyn if kind == "444" \
                 else _quant_scores_420_dyn
             wp, hp = self.geom.wp, self.geom.hp
 
-            def wave(q, *p):
-                return (fn(*p, q, *self._row(), wp, hp),)
+            def wave(q, *args):
+                return (fn(*args[:n], q, *_row(*args[n:], wp, hp), wp, hp),)
         else:
             fn = _quant_scores_444 if kind == "444" else _quant_scores_420
+            w, h = self.width, self.height
 
-            def wave(q, *p):
-                return (fn(*p, q, self.xyb0, *grid, self.width,
-                           self.height),)
-        (scores,), mode = self._graph_run(("quant", kind), wave,
-                                          (q,) + tuple(planes))
+            def wave(q, *args):
+                return (fn(*args[:n], q, args[n], *grid, w, h),)
+        (scores,), mode = self._graph_run(
+            ("quant", kind) + (grid or ()), wave,
+            (q,) + tuple(planes) + self._state())
         self._count(mode)
         return scores, len(qs)
 
@@ -886,7 +916,7 @@ class Comparator:
         if self.geom is None:
             self._mask_xyz = dm.mask(self.xyb0, self.xyb0)[0]
             return
-        x, w, h, sc = self._row()
+        x, w, h, sc = _row(*self._state(), self.geom.wp, self.geom.hp)
         self._mask_xyz = dm.mask_dyn(x, x, w, h, sc)[0][:, 0]
 
     def finish_block_comparisons(self):

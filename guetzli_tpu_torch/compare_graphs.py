@@ -1,4 +1,4 @@
-"""CUDA graphs of a comparator's whole-image compares.
+"""CUDA graphs of the whole-image compares, shared by every comparator.
 
 The eager compare chain makes ~800 PyTorch calls, and the host takes
 5-20 times longer to issue them than the card takes to run them. A
@@ -8,44 +8,64 @@ for a compare with its block weights) instead of the chain's. The
 graphs replay exactly the kernels that eager mode launches, on the same
 data, so every result is the same bit for bit.
 
-A graph's key is the compare form and everything that fixes its op
-sequence and shapes (comparator.py gives it); the shapes and dtypes of
-the inputs are added here. A comparator's first compare runs eagerly:
-it builds the chain's device constants (ops/devconst.py) and the
-libraries' per-shape state (cuDNN's plans, cuBLAS's handle), which
-every form at the image's geometry shares, since each trial of a wave
-runs at the shape of a single compare. From then on a key's first use
-captures the chain and replays it, and later uses replay. A constant
-still missing at a capture (one a form adds, or one dropped from the
-cache) gives up the capture for an eager run, which makes it; the key's
-next use captures. The inputs are copied into the graph's static
-buffers before each replay (host arrays through pinned memory, without
-waiting for the stream), and the outputs are copied out after it, so
-that every caller owns its results while the graph runs again.
+The graphs live in one cache per device, shared by every comparator: a
+corpus repeats a few image sizes, and a comparator whose keys an
+earlier one captured replays them from its first compare. A graph's
+key is the comparator's geometry (its width and height, and its bucket
+when padded), the compare form and everything else that fixes its op
+sequence and shapes (comparator.py gives them: the block grids, a
+weights graph's direction, target and factors, the knobs); the shapes
+and dtypes of the inputs are added here. A graph reads nothing of one
+image but its inputs: the coefficient planes and the image's own device
+state (its original's opsin, and on a bucket its size and border
+scales), which are copied into the graph's static buffers before each
+replay, device to device, as host arrays are through pinned memory
+(without waiting for the stream). The outputs are copied out after the
+replay, so that every caller owns its results while the graph runs
+again.
 
-Every comparator's graphs on a device share one memory pool, which
-stays open between images (a one-kernel graph of its own holds it): a
-pool per comparator would cudaMalloc its segments afresh for each
-image and keep them until the allocator's cache is emptied, which a
-capture cannot do, so a corpus ran out of memory. Graphs of one pool
-may reuse each other's intermediate memory, which is safe as long as no
-two run at once and each replay's outputs are copied before another
-graph replays: every compare runs on the device's current stream, and
-one lock for the process covers each capture (on a side stream, in
-thread-local error mode) and each replay with its copies (compares may
-come from several threads). drop() releases a comparator's graphs;
-drop_all() releases every graph on a device and closes the pool, whose
-memory the allocator then frees (recovery from an out-of-memory error,
-runtime.py); the next use of a key captures again, into a new pool. A
-capture that fails leaves its key eager for the comparator; one that
-fails for another reason than memory also closes the pool.
+The first compare at a geometry new to the device runs eagerly: it
+builds the chain's device constants (ops/devconst.py) and the
+libraries' per-shape state (cuDNN's plans, cuBLAS's handle), which
+every form at that geometry shares, since each trial of a wave runs at
+the shape of a single compare. From then on a key's first use captures
+the chain and replays it, and later uses, by any comparator, replay. A
+constant still missing at a capture (one a form adds, or one dropped
+from the cache) gives up the capture for an eager run, which makes it;
+the key's next use captures.
+
+The static buffers and the outputs take ordinary device memory, which
+the quant waves' sizing (Comparator.quant_batch_sizes) counts as used,
+so the cache keeps at most MAX_BYTES of them and drops the least
+recently used graphs beyond that.
+
+Every graph on a device shares one memory pool, which stays open while
+graphs come and go (a one-kernel graph of its own holds it): a pool per
+comparator would cudaMalloc its segments afresh for each image and keep
+them until the allocator's cache is emptied, which a capture cannot do,
+so a corpus ran out of memory. Graphs of one pool may reuse each
+other's intermediate memory, which is safe as long as no two run at
+once and each replay's outputs are copied before another graph
+replays: every compare runs on the device's current stream, and one
+lock for the process covers each capture (on a side stream, in
+thread-local error mode) and each load, replay and copy of the outputs
+(compares may come from several threads). drop() releases every graph
+on a device (a comparator's recovery); drop_all() also closes the pool,
+whose memory the allocator then frees (recovery from an out-of-memory
+error, runtime.py); the next use of a key captures again, into a new
+pool. A capture that fails leaves its key eager for the comparator;
+one that fails for another reason than memory also closes the pool.
 
 Counters (comparator.py keeps them): compare_graph_captures,
 compare_graph_replays and compare_eager, one per compare dispatched
-(combined() names a dispatch of several graphs). Span:
-compare_capture, the seconds of capture and instantiation.
+(combined() names a dispatch of several graphs); of the replays,
+compare_graph_shared, those of a graph another comparator captured;
+and compare_graph_evictions, the graphs a comparator's captures pushed
+out of the cache. Span: compare_capture, the seconds of capture and
+instantiation.
 """
 
+import collections
 import sys
 import threading
 import warnings
@@ -60,12 +80,26 @@ from guetzli_tpu_torch.ops import devconst
 CAPTURES = "compare_graph_captures"
 REPLAYS = "compare_graph_replays"
 EAGER = "compare_eager"
+# How a dispatch ran: one of these each.
 COUNTERS = (CAPTURES, REPLAYS, EAGER)
+SHARED = "compare_graph_shared"
+EVICTIONS = "compare_graph_evictions"
+# Counted beside COUNTERS: shared replays and evictions.
+CACHE_COUNTERS = (SHARED, EVICTIONS)
+
+# Bytes of static buffers and outputs the cache keeps on a device. A
+# key takes its inputs and outputs: ~1-2 MB for a thumbnail, ~170 MB for
+# the four 0.3-0.6 MPix photo sizes together, ~0.5-0.9 GB for a 6.29
+# MPix size (its planes and opsin are 75 MB each). 1 GiB holds a
+# thumbnail or photo corpus's sizes whole and a large photo's keys,
+# and takes 1.3% of an 80 GB card from what the quant waves may use: a
+# 6.29 MPix image keeps its waves of 3 and then 2 trials.
+MAX_BYTES = 1 << 30
 
 _lock = threading.RLock()
 _side_streams = {}
 _pools = {}               # device -> _Pool
-_live = weakref.WeakSet()
+_caches = {}              # device -> _Cache
 _warned = []
 
 
@@ -94,20 +128,59 @@ class _Pool:
         self.bytes = 0
 
 
+def _device_key(device):
+    if device.index is not None or device.type != "cuda":
+        return str(device)
+    return "cuda:%d" % torch.cuda.current_device()
+
+
 def _pool(device):
-    key = str(device) if device.index is not None or device.type != \
-        "cuda" else "cuda:%d" % torch.cuda.current_device()
-    return _pools.setdefault(key, _Pool())
+    return _pools.setdefault(_device_key(device), _Pool())
 
 
-def count(counters, name):
-    counters[name] = counters.get(name, 0) + 1
+class _Cache:
+    """A device's graphs by key, least recently used first, the bytes
+    of their static buffers and outputs, and the geometries at which an
+    eager compare ran (kept when the graphs are dropped)."""
+
+    def __init__(self):
+        self.entries = collections.OrderedDict()
+        self.bytes = 0
+        self.warm = set()
+
+    def put(self, key, entry, counters):
+        """Add `entry` under `key`; drop the least recently used others
+        while the cache holds more than MAX_BYTES, counting each in
+        `counters` as an eviction."""
+        self.entries[key] = entry
+        self.bytes += entry.bytes
+        while self.bytes > MAX_BYTES and len(self.entries) > 1:
+            _key, old = self.entries.popitem(last=False)
+            self.bytes -= old.bytes
+            count(counters, EVICTIONS)
+
+    def drop(self):
+        self.entries.clear()
+        self.bytes = 0
+
+
+def _cache(device):
+    return _caches.setdefault(_device_key(device), _Cache())
+
+
+def count(counters, mode):
+    """Count a dispatch or an eviction in the dict `counters`; a replay
+    of a graph another comparator captured (SHARED) counts as a replay
+    too."""
+    for name in (REPLAYS, SHARED) if mode == SHARED else (mode,):
+        counters[name] = counters.get(name, 0) + 1
 
 
 def combined(*modes):
     """How a dispatch of several graphs ran: eager if any part did, else
-    a capture if any part captured, else a replay."""
-    for mode in (EAGER, CAPTURES):
+    a capture if any part captured, else a shared replay if any part
+    replayed another comparator's graph, else a replay."""
+    for mode in (EAGER, CAPTURES, SHARED):
         if mode in modes:
             return mode
     return REPLAYS
@@ -185,14 +258,18 @@ class CudaGraph:
 
 
 class _Entry:
-    """A key's graph, its static inputs and outputs, and the device
-    constants its capture read (alive as long as the graph)."""
+    """A key's graph, its static inputs and outputs, the device
+    constants its capture read (alive as long as the graph), the
+    CompareGraphs (weakly) that captured it, and the bytes of its
+    statics and outputs."""
 
-    def __init__(self, statics):
+    def __init__(self, statics, owner):
         self.statics = statics
+        self.owner = weakref.ref(owner)
         self.graph = None
         self.outputs = None
         self.consts = None
+        self.bytes = 0
 
     def load(self, inputs):
         for dst, a in zip(self.statics, inputs):
@@ -209,52 +286,65 @@ def _torch_dtype(a):
     return torch.from_numpy(np.empty(0, np.asarray(a).dtype)).dtype
 
 
-def _same_device(a, b):
-    return a.type == b.type and (a.index is None or b.index is None
-                                 or a.index == b.index)
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 class CompareGraphs:
-    """The graphs of one comparator, by key. `enabled` False (the CPU, a
-    mesh) runs every compare eagerly. graph_class makes one graph (tests
-    put a stub in its place)."""
+    """One comparator's way into its device's graphs (module docstring):
+    its geometry, the keys whose capture failed for it, and whether it
+    takes graphs at all (`enabled` False, the CPU and a mesh, runs every
+    compare eagerly). graph_class makes one graph (tests put a stub in
+    its place)."""
 
     graph_class = CudaGraph
 
-    def __init__(self, device, enabled):
+    def __init__(self, device, enabled, geometry):
         self.device = torch.device(device)
         self.enabled = enabled
-        self._entries = {}
-        self._warm = False       # an eager compare has run
+        self.geometry = tuple(geometry)
         self._eager_only = set()
 
     def keys(self):
-        """The keys that have a graph."""
-        return set(self._entries)
+        """The keys at this comparator's geometry that have a graph."""
+        with _lock:
+            return {k for k in _cache(self.device).entries
+                    if k[0] == self.geometry}
 
-    def run(self, key, fn, inputs, timings=None):
+    def run(self, key, fn, inputs, timings, counters):
         """(fn(*inputs on the device), how it ran): fn gives a tuple of
-        device tensors, by the key's graph (module docstring) when
-        enabled, else eagerly; how is CAPTURES, REPLAYS or EAGER. Each
-        input is a host array or a device tensor (a host array and a
-        tensor of one shape and dtype share a key); the outputs are the
-        caller's own. Adds the seconds of a capture to
-        timings["compare_capture"]."""
+        device tensors and reads nothing of the image but its inputs
+        (the geometry and `key` fix the rest), by the graph of the
+        geometry and key (module docstring) when enabled, else eagerly;
+        how is CAPTURES, REPLAYS, SHARED or EAGER. Each input is a host
+        array or a device tensor (a host array and a tensor of one shape
+        and dtype share a key); the outputs are the caller's own. Adds
+        the seconds of a capture to timings["compare_capture"] (timings
+        a dict or None, spans.timed) and the graphs it evicts to
+        counters[EVICTIONS]."""
         if not self.enabled:
             return fn(*[self._device(a) for a in inputs]), EAGER
-        key = tuple(key) + tuple(_signature(a) for a in inputs)
+        key = (self.geometry,) + tuple(key) + tuple(_signature(a)
+                                                    for a in inputs)
         with _lock:
-            entry, mode = self._entries.get(key), REPLAYS
-            if entry is None and self._warm and \
+            cache = _cache(self.device)
+            entry = cache.entries.get(key)
+            if entry is not None:
+                cache.entries.move_to_end(key)
+                mode = REPLAYS if entry.owner() is self else SHARED
+            elif self.geometry in cache.warm and \
                     key not in self._eager_only:
                 entry, mode = self._capture(key, fn, inputs, timings), \
                     CAPTURES
+                if entry is not None:
+                    cache.put(key, entry, counters)
             if entry is not None:
                 entry.load(inputs)
                 entry.graph.replay()
                 return tuple(o.clone() for o in entry.outputs), mode
         out = fn(*[self._device(a) for a in inputs])
-        self._warm = True
+        with _lock:
+            _cache(self.device).warm.add(self.geometry)
         return out, EAGER
 
     def _device(self, a):
@@ -264,7 +354,8 @@ class CompareGraphs:
     def _capture(self, key, fn, inputs, timings):
         """The key's entry, captured; None if the capture gave up."""
         entry = _Entry([torch.empty(tuple(a.shape), dtype=_torch_dtype(a),
-                                    device=self.device) for a in inputs])
+                                    device=self.device) for a in inputs],
+                       self)
         entry.load(inputs)
         cuda = self.device.type == "cuda"
         pool = _pool(self.device)
@@ -295,24 +386,22 @@ class CompareGraphs:
                 pool.bytes += max(
                     0, torch.cuda.memory_reserved(self.device) - before)
         entry.graph, entry.outputs, entry.consts = graph, tuple(outs), consts
-        self._entries[key] = entry
-        _live.add(self)
+        entry.bytes = _nbytes(entry.statics) + _nbytes(entry.outputs)
         return entry
 
-    def drop(self):
-        """Release every graph; the keys' next uses capture again."""
-        with _lock:
-            self._entries.clear()
-        _live.discard(self)
+
+def drop(device):
+    """Release every graph on `device`; the keys' next uses capture
+    again."""
+    with _lock:
+        _cache(torch.device(device)).drop()
 
 
 def drop_all(device):
-    """drop() every comparator's graphs on `device` and close its pool."""
+    """drop() the graphs on `device` and close its pool."""
     device = torch.device(device)
     with _lock:
-        for graphs in list(_live):
-            if _same_device(graphs.device, device):
-                graphs.drop()
+        _cache(device).drop()
         _pool(device).close()
 
 

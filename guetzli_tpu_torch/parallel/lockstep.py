@@ -73,14 +73,16 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
     seconds of "image_setup" (input decode, the comparators and the
     first compares), "quant", "zeroing" (the per-image masking state and
     the zeroing call) and "backend", and within them the comparators'
-    "compare_dispatch" and "compare_wait" (comparator.py); under a
+    "compare_dispatch", "compare_wait" (comparator.py) and
+    "compare_capture" (compare_graphs.py; 0.0 from the start); under a
     profiler each phase and each back-end round ("lockstep_round") is a
     "phase.<name>" range too (spans.py). `counters`, a dict, accumulates
     "compares" (the comparators' whole-image compares, a wave's trials
     each), "batched" (those run by the CompareBatcher), "flushes" (its
     stacked compares), the comparators' compare_graph_captures,
     compare_graph_replays and compare_eager (one per dispatch:
-    compare_graphs.py) and the searches' quant_waves, quant_wave_trials,
+    compare_graphs.py), compare_graph_shared and compare_graph_evictions,
+    and the searches' quant_waves, quant_wave_trials,
     oom_recoveries and return_memory_calls (search/processor.py).
 
     Images under 32 pixels, JPEGs the search does not take (grayscale,
@@ -108,6 +110,10 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
     inputs = list(inputs)
     results = [None] * len(inputs)
     ctxs = []
+    if phase_walls is not None:
+        # A batch whose compares all replay graphs cached before it
+        # reads 0.
+        phase_walls.setdefault("compare_capture", 0.0)
     for i, (name, data) in enumerate(inputs):
         params = Params(force_420=force_420, try_420=try_420,
                         use_silver_screen=use_silver_screen)
@@ -212,7 +218,9 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
                        ("batched", batcher.rows),
                        ("flushes", batcher.flushes)) + tuple(
                 (k, sum(c["proc"].comparator.counters.get(k, 0)
-                        for c in ctxs)) for k in compare_graphs.COUNTERS) \
+                        for c in ctxs))
+                for k in compare_graphs.COUNTERS
+                + compare_graphs.CACHE_COUNTERS) \
                 + tuple((k, sum(c["proc"].stats.counters.get(k, 0)
                                 for c in ctxs))
                         for k in SEARCH_COUNTERS):

@@ -112,8 +112,9 @@ class ProcessStats:
 RETURN_MEMORY_BLOCKS = 1 << 14
 RETURN_MEMORY_PASS_BYTES = 16 << 20
 # The spans every encode's timings hold from its start, at 0.0 until
-# they run: a healthy large encode reads 0 for "recover".
-ENCODE_SPANS = ("return_memory", "recover")
+# they run: a healthy large encode reads 0 for "recover", and one whose
+# compares all replay graphs cached before it 0 for "compare_capture".
+ENCODE_SPANS = ("return_memory", "recover", "compare_capture")
 # ProcessStats.counters the corpus driver sums over its images.
 SEARCH_COUNTERS = ("quant_waves", "quant_wave_trials", "oom_recoveries",
                    "return_memory_calls", "flips", "flip_code_rebuilds")
@@ -1110,8 +1111,9 @@ def process_rgb(params: Params, rgb, w, h, stats: ProcessStats = None,
 def _comparator(rgb, w, h, params, stats, device, mesh):
     """The image's Comparator, its compare spans (compare_dispatch,
     compare_wait, compare_capture) charged to stats.timings and its
-    dispatch counters (compare_graph_captures, compare_graph_replays,
-    compare_eager) to stats.counters."""
+    graph counters (compare_graph_captures, compare_graph_replays,
+    compare_eager, compare_graph_shared, compare_graph_evictions) to
+    stats.counters."""
     comparator = Comparator(rgb, w, h, params.butteraugli_target, device,
                             mesh=mesh)
     comparator.timings = stats.timings

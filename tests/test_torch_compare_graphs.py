@@ -3,11 +3,13 @@ and the device constants they rely on (ops/devconst.py).
 
 On the CPU, with a stub in place of torch.cuda.CUDAGraph (it runs the
 chain again on the static buffers at each replay): the capture rule
-(the comparator's first compare eager, then a capture on each key's
-first use and replays after it), the keys of the four forms, the
+(the first compare at a new geometry eager, then a capture on each
+key's first use and replays after it), the keys of the four forms, the
 counters, the cache dropped by a recovery, handles in flight that keep
 their own results, and no graph at all on the CPU by default; and every
 cached device constant equal to the array its per-call upload made.
+(tests/test_torch_shared_graphs.py: the cache shared across
+comparators.)
 
 On the card (`gpu` marker; run with --noconftest, as the card has no
 JAX): a 4:4:4 PNG crop, a 4:2:0 JPEG and a lockstep batch of four
@@ -33,6 +35,15 @@ from guetzli_tpu_torch.search import state as st
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True)
+def _no_cached_graphs():
+    """Each test starts with no graph cached and no geometry warm, and
+    leaves none (xdist runs a file's tests in one process)."""
+    compare_graphs._caches.clear()
+    yield
+    compare_graphs._caches.clear()
 
 
 class StubGraph:
@@ -84,7 +95,7 @@ def _graphed(monkeypatch, graph_class=StubGraph):
 
 
 def _forms(comp):
-    return {k[0] for k in comp._graphs.keys()}
+    return {k[1] for k in comp._graphs.keys()}
 
 
 def _total(counters):
@@ -158,6 +169,9 @@ def test_recovery_drops_the_graphs(monkeypatch):
     assert not comp._graphs.keys()
     assert comp.compare_img(img) == first[0]
     assert comp.counters[compare_graphs.CAPTURES] == 2
+    # A comparator of the same geometry replays comp's graph from its
+    # first compare; after the release its next compare captures (the
+    # geometry stays warm).
     other = comparator.Comparator(rgb, w, h, 1.0, CPU, padded=False,
                                   mesh=False)
     other.compare_img(img)
@@ -166,8 +180,9 @@ def test_recovery_drops_the_graphs(monkeypatch):
     runtime.release_memory(CPU, "a test")
     assert not other._graphs.keys() and not comp._graphs.keys()
     assert other.compare_img(img) == first[0]
-    assert other.counters == {compare_graphs.EAGER: 1,
-                              compare_graphs.CAPTURES: 2}
+    assert other.counters == {compare_graphs.REPLAYS: 2,
+                              compare_graphs.SHARED: 2,
+                              compare_graphs.CAPTURES: 1}
 
 
 def test_one_pool_serves_every_comparator(monkeypatch):
@@ -381,10 +396,10 @@ class _Record:
         real = compare_graphs.CompareGraphs.run
         rec = self
 
-        def run(graphs, key, fn, inputs, timings=None):
+        def run(graphs, key, fn, inputs, timings, counters):
             if eager:
                 graphs.enabled = False
-            out, mode = real(graphs, key, fn, inputs, timings)
+            out, mode = real(graphs, key, fn, inputs, timings, counters)
             rec.outs.append(out)
             return out, mode
         monkeypatch.setattr(compare_graphs.CompareGraphs, "run", run)
@@ -491,7 +506,10 @@ def test_graphs_on_card(monkeypatch):
 
     # Three waves of one size queued before any is fetched, then a
     # recovery: the next compare captures again and gives the same score.
+    # The encodes above cached this geometry's graphs: dropped, its first
+    # compare captures (the geometry is warm).
     img = _coeff_image(crop, 256, 192)
+    compare_graphs.drop(dev)
     comp = comparator.Comparator(crop, 256, 192, 1.0, dev)
     first = comp.compare_img(img)
     base = comp.quant_base_upload(img)
