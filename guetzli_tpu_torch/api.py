@@ -48,7 +48,7 @@ def _encode(data, pixels, quality, params, stats, dev):
         if out is None:
             raise ValueError("JPEG input could not be processed")
         return out
-    with stats.timed("image_setup"):
+    with stats.timed("image_setup"), stats.timed("input_decode"):
         rgb, w, h = read_png(data) if pixels is None else pixels
     return process_rgb(params, rgb, w, h, stats, dev)
 

@@ -49,17 +49,27 @@ and the banded compares stay eager. `counters` (a dict; the serial
 search sets its ProcessStats.counters) counts each dispatch as
 compare_graph_captures, compare_graph_replays or compare_eager, the
 replays of graphs another comparator captured also as
-compare_graph_shared, and the graphs a capture evicted as
-compare_graph_evictions.
+compare_graph_shared, the graphs a capture evicted as
+compare_graph_evictions, and the bytes of the compares' host-to-device
+copies as compare_upload_bytes.
 
-Two spans (spans.py) time them on the host, into the comparator's
+Three spans (spans.py) time them on the host, into the comparator's
 `timings` dict (None: the profiler's trace only):
 
   * compare_dispatch: launching a whole-image compare's device work,
     where it is launched: dispatch_compare, dispatch_quant_batch, and
     the run of dispatch_compare_with_weights and of the sparse
     dispatches (the resident state's scatter and compare), at once or,
-    for a DeferredCompare, at its resolve. Nested sites count once;
+    for a DeferredCompare, at its resolve; and the uploads of the quant
+    search's base (quant_base_upload) and of the back end's resident
+    state (backend_sync_full). Nested sites count once;
+  * compare_upload, inside compare_dispatch: the host-to-device copies
+    of a compare's coefficient inputs, their pinning included
+    (compare_graphs.uploading): the planes of a whole-image compare and
+    a wave's matrices as compare_graphs loads them, the quant base, the
+    resident state's full upload and the sparse dispatches' index and
+    value arrays. The CompareBatcher's stacks (pad on) and the banded
+    compares (a mesh) are not counted;
   * compare_wait: blocked in the device-to-host copy of a compare's
     results (fetch_compare_plain, fetch_quant_scores, fetch_compare_pure,
     fetch_compare_many).
@@ -596,6 +606,12 @@ class Comparator:
         """_up without waiting for the stream (compare_graphs.to_device)."""
         return compare_graphs.to_device(a, self.device)
 
+    def _uploading(self, *arrays):
+        """The compare_upload span and counter of a compare's uploads of
+        host `arrays` (compare_graphs.uploading)."""
+        return compare_graphs.uploading(self.timings, self.counters,
+                                        compare_graphs.host_bytes(arrays))
+
     def _original_opsin(self):
         """The original's opsin [3, H, W], or [3, Hp, Wp] on a bucket
         (then also the image's row state: _w, _h, _sc_flat)."""
@@ -794,20 +810,22 @@ class Comparator:
         not one under a mesh (JAX comparator.py:655)."""
         return self.mesh is None
 
+    @_dispatches
     def quant_base_upload(self, img):
         """Put the quant search's base (the dequantized input coefficients
         every trial requantizes) on the device, on the bucket's grids if
         padded: an opaque handle for dispatch_quant_batch."""
+        kind = self._kind(img)
         if self.geom is not None:
-            kind = "444" if img.is_444() else "420"
-            planes = self._padded_planes(img)
-            return (kind, (self._up(planes),) if kind == "444"
-                    else tuple(self._up(p) for p in planes), None)
-        if img.is_444():
-            return "444", (self._up(img.coeffs),), (img.bw, img.bh)
-        y, u, v = img.comps
-        return ("420", tuple(self._up(c.coeffs) for c in img.comps),
-                (y.bw, y.bh, u.bw, u.bh))
+            grid = None
+        elif img.is_444():
+            grid = (img.bw, img.bh)
+        else:
+            y, u, _v = img.comps
+            grid = (y.bw, y.bh, u.bw, u.bh)
+        planes = self._planes(img)
+        with self._uploading(*planes):
+            return kind, tuple(self._up(p) for p in planes), grid
 
     # JAX's wave sizes: the tree's waves hold at most the largest.
     _QUANT_BATCH_SIZES = (4, 8)
@@ -818,8 +836,11 @@ class Comparator:
     # there on its bucket (2944x1920) (chip_smoke.py's route phase); at
     # 3072x2048 (6.29 MPix) a wave's peak is ~690 B a pixel plus ~730 B a
     # trial, 1,413-1,425 B a trial in a wave of one, 1,071-1,077 B in a
-    # wave of two, 958-962 B in one of three; on an NVIDIA H100 80GB
-    # HBM3 at 700 W (PERF.md).
+    # wave of two, 958-962 B in one of three; 4:2:0 at 2048x1536 and
+    # 3072x2048 as much, so one constant serves both kinds: 1,424-1,431
+    # B a trial in a wave of one (its capture; 1,406-1,407 B eager),
+    # 1,073-1,074 B in a wave of two, 957-958 B in one of three; on an
+    # NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
     _QUANT_TRIAL_BYTES_PER_PIXEL = 1472
     # The share of the card's free memory a wave may take.
     _QUANT_WAVE_MEMORY_SHARE = 0.5
@@ -1265,6 +1286,7 @@ class Comparator:
         under a mesh."""
         return comp_mask == 7 and img.is_444() and self.mesh is None
 
+    @_dispatches
     def backend_sync_full(self, img):
         """Upload the back end's coefficient state [3, NB, 64] int32 from
         the host image (on a bucket [3, NBp, 64]) into its buffer, without
@@ -1275,7 +1297,8 @@ class Comparator:
                 tuple(self._dev_coeffs.shape) != host.shape:
             self._dev_coeffs = torch.empty(host.shape, dtype=torch.int32,
                                            device=self.device)
-        compare_graphs.copy_into(self._dev_coeffs, host)
+        with self._uploading(host):
+            compare_graphs.copy_into(self._dev_coeffs, host)
         self._dev_grid = (img.bw, img.bh)
 
     def _state_rows(self, blocks):
@@ -1287,8 +1310,10 @@ class Comparator:
 
     def _scatter(self, cidx, cvals):
         """Set flat entries c*NB*64 + b*64 + k of the resident state."""
-        self._dev_coeffs.view(-1)[self._up_async(cidx)] = \
-            self._up_async(cvals)
+        with self._uploading(cidx, cvals):
+            vals = self._up_async(cvals)
+            idx = self._up_async(cidx)
+        self._dev_coeffs.view(-1)[idx] = vals
 
     def dispatch_compare_sparse_coeffs(self, img, blocks_idx, cks, vals,
                                        direction, target_mul, factor_x,
@@ -1326,9 +1351,12 @@ class Comparator:
 
         def run():
             if len(changed):
-                self._dev_coeffs[:, self._up_async(self._state_rows(
-                    changed)), :] = self._up_async(np.stack(
-                        [c.coeffs[changed] for c in img.comps]))
+                rows = self._state_rows(changed)
+                blocks = np.stack([c.coeffs[changed] for c in img.comps])
+                with self._uploading(rows, blocks):
+                    vals = self._up_async(blocks)
+                    idx = self._up_async(rows)
+                self._dev_coeffs[:, idx, :] = vals
             return self._compare_resident(args)
         return self._deferred(run, args)
 

@@ -61,8 +61,11 @@ compare_graph_replays and compare_eager, one per compare dispatched
 (combined() names a dispatch of several graphs); of the replays,
 compare_graph_shared, those of a graph another comparator captured;
 and compare_graph_evictions, the graphs a comparator's captures pushed
-out of the cache. Span: compare_capture, the seconds of capture and
-instantiation.
+out of the cache. Spans: compare_capture, the seconds of capture and
+instantiation; compare_upload, the host-to-device copies of a
+compare's host arrays (its coefficient planes, a wave's matrices),
+including their pinning, whose bytes the counter compare_upload_bytes
+adds up (uploading(): the comparator's own uploads take it too).
 """
 
 import collections
@@ -70,6 +73,7 @@ import sys
 import threading
 import warnings
 import weakref
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -86,6 +90,9 @@ SHARED = "compare_graph_shared"
 EVICTIONS = "compare_graph_evictions"
 # Counted beside COUNTERS: shared replays and evictions.
 CACHE_COUNTERS = (SHARED, EVICTIONS)
+# The span and the counter of a compare's host-to-device copies.
+UPLOAD = "compare_upload"
+UPLOAD_BYTES = "compare_upload_bytes"
 
 # Bytes of static buffers and outputs the cache keeps on a device. A
 # key takes its inputs and outputs: ~1-2 MB for a thumbnail, ~170 MB for
@@ -196,6 +203,24 @@ def to_device(a, device):
     return torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
 
 
+def host_bytes(arrays):
+    """Bytes of the host arrays among `arrays` (device tensors: 0)."""
+    return sum(np.asarray(a).nbytes for a in arrays
+               if not isinstance(a, torch.Tensor))
+
+
+@contextmanager
+def uploading(timings, counters, nbytes):
+    """The compare_upload span (spans.timed) on `timings` around a
+    compare's host-to-device copies of `nbytes` bytes, which are added
+    to counters[UPLOAD_BYTES] (counters a dict or None). The copies are
+    the caller's: the span adds no sync."""
+    with spans.timed(timings, UPLOAD):
+        yield
+    if counters is not None:
+        counters[UPLOAD_BYTES] = counters.get(UPLOAD_BYTES, 0) + nbytes
+
+
 def copy_into(dst, a):
     """Write host array or device tensor `a` into device tensor `dst`
     (to_device's copy for a host array)."""
@@ -271,9 +296,21 @@ class _Entry:
         self.consts = None
         self.bytes = 0
 
-    def load(self, inputs):
-        for dst, a in zip(self.statics, inputs):
-            copy_into(dst, a)
+    def load(self, inputs, timings, counters):
+        """Copy `inputs` into the static buffers: the host arrays inside
+        one compare_upload span (uploading), the device tensors device
+        to device."""
+        pairs = list(zip(self.statics, inputs))
+        host = [(dst, a) for dst, a in pairs
+                if not isinstance(a, torch.Tensor)]
+        if host:
+            with uploading(timings, counters,
+                           host_bytes(a for _dst, a in host)):
+                for dst, a in host:
+                    copy_into(dst, a)
+        for dst, a in pairs:
+            if isinstance(a, torch.Tensor):
+                dst.copy_(a)
 
 
 def _signature(a):
@@ -320,10 +357,12 @@ class CompareGraphs:
         array or a device tensor (a host array and a tensor of one shape
         and dtype share a key); the outputs are the caller's own. Adds
         the seconds of a capture to timings["compare_capture"] (timings
-        a dict or None, spans.timed) and the graphs it evicts to
+        a dict or None, spans.timed), those of the host arrays' copies
+        to timings[UPLOAD] and their bytes to counters[UPLOAD_BYTES]
+        (uploading), and the graphs a capture evicts to
         counters[EVICTIONS]."""
         if not self.enabled:
-            return fn(*[self._device(a) for a in inputs]), EAGER
+            return fn(*self._on_device(inputs, timings, counters)), EAGER
         key = (self.geometry,) + tuple(key) + tuple(_signature(a)
                                                     for a in inputs)
         with _lock:
@@ -334,29 +373,34 @@ class CompareGraphs:
                 mode = REPLAYS if entry.owner() is self else SHARED
             elif self.geometry in cache.warm and \
                     key not in self._eager_only:
-                entry, mode = self._capture(key, fn, inputs, timings), \
-                    CAPTURES
+                entry, mode = self._capture(key, fn, inputs, timings,
+                                            counters), CAPTURES
                 if entry is not None:
                     cache.put(key, entry, counters)
             if entry is not None:
-                entry.load(inputs)
+                entry.load(inputs, timings, counters)
                 entry.graph.replay()
                 return tuple(o.clone() for o in entry.outputs), mode
-        out = fn(*[self._device(a) for a in inputs])
+        out = fn(*self._on_device(inputs, timings, counters))
         with _lock:
             _cache(self.device).warm.add(self.geometry)
         return out, EAGER
 
-    def _device(self, a):
-        return a if isinstance(a, torch.Tensor) else to_device(a,
-                                                               self.device)
+    def _on_device(self, inputs, timings, counters):
+        """The inputs on the device for an eager run: the host arrays
+        through to_device, inside one compare_upload span."""
+        if all(isinstance(a, torch.Tensor) for a in inputs):
+            return list(inputs)
+        with uploading(timings, counters, host_bytes(inputs)):
+            return [a if isinstance(a, torch.Tensor)
+                    else to_device(a, self.device) for a in inputs]
 
-    def _capture(self, key, fn, inputs, timings):
+    def _capture(self, key, fn, inputs, timings, counters):
         """The key's entry, captured; None if the capture gave up."""
         entry = _Entry([torch.empty(tuple(a.shape), dtype=_torch_dtype(a),
                                     device=self.device) for a in inputs],
                        self)
-        entry.load(inputs)
+        entry.load(inputs, timings, counters)
         cuda = self.device.type == "cuda"
         pool = _pool(self.device)
         with spans.timed(timings, "compare_capture"):

@@ -71,18 +71,20 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
     image's blocks, then the back-end rounds. `threads` sizes the pool of
     the per-image host work. `phase_walls`, a dict, accumulates the
     seconds of "image_setup" (input decode, the comparators and the
-    first compares), "quant", "zeroing" (the per-image masking state and
-    the zeroing call) and "backend", and within them the comparators'
-    "compare_dispatch", "compare_wait" (comparator.py) and
-    "compare_capture" (compare_graphs.py; 0.0 from the start); under a
+    first compares; the decode, reading the input and decoding it to
+    RGB on the host, also as "input_decode"), "quant", "zeroing" (the
+    per-image masking state and the zeroing call) and "backend", and
+    within them the comparators' "compare_dispatch", "compare_wait"
+    (comparator.py), "compare_capture" and "compare_upload"
+    (compare_graphs.py; both 0.0 from the start); under a
     profiler each phase and each back-end round ("lockstep_round") is a
     "phase.<name>" range too (spans.py). `counters`, a dict, accumulates
     "compares" (the comparators' whole-image compares, a wave's trials
     each), "batched" (those run by the CompareBatcher), "flushes" (its
     stacked compares), the comparators' compare_graph_captures,
     compare_graph_replays and compare_eager (one per dispatch:
-    compare_graphs.py), compare_graph_shared and compare_graph_evictions,
-    and the searches' quant_waves, quant_wave_trials,
+    compare_graphs.py), compare_graph_shared, compare_graph_evictions
+    and compare_upload_bytes, and the searches' quant_waves, quant_wave_trials,
     oom_recoveries and return_memory_calls (search/processor.py).
 
     Images under 32 pixels, JPEGs the search does not take (grayscale,
@@ -112,8 +114,9 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
     ctxs = []
     if phase_walls is not None:
         # A batch whose compares all replay graphs cached before it
-        # reads 0.
-        phase_walls.setdefault("compare_capture", 0.0)
+        # reads 0 for "compare_capture".
+        for key in ("compare_capture", compare_graphs.UPLOAD):
+            phase_walls.setdefault(key, 0.0)
     for i, (name, data) in enumerate(inputs):
         params = Params(force_420=force_420, try_420=try_420,
                         use_silver_screen=use_silver_screen)
@@ -122,17 +125,18 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
             input_is_420 = False
             rgb = jpg_in = None
             try:
-                if api.is_jpeg(data):
-                    # processor.cc:1029-1066: a 4:4:4 or 4:2:0 YCbCr JPEG
-                    # is searched from its coefficients; a 4:2:0 one
-                    # forces the 4:2:0 pass for that image.
-                    jpg_in = reader.read_jpeg(data)
-                    if reader.check_jpeg_sanity(jpg_in):
-                        rgb = decode_jpeg_to_rgb(jpg_in)
-                    input_is_420 = jpg_in.is_420()
-                    w, h = jpg_in.width, jpg_in.height
-                else:
-                    rgb, w, h = read_png(data)
+                with spans.timed(phase_walls, "input_decode"):
+                    if api.is_jpeg(data):
+                        # processor.cc:1029-1066: a 4:4:4 or 4:2:0 YCbCr
+                        # JPEG is searched from its coefficients; a 4:2:0
+                        # one forces the 4:2:0 pass for that image.
+                        jpg_in = reader.read_jpeg(data)
+                        if reader.check_jpeg_sanity(jpg_in):
+                            rgb = decode_jpeg_to_rgb(jpg_in)
+                        input_is_420 = jpg_in.is_420()
+                        w, h = jpg_in.width, jpg_in.height
+                    else:
+                        rgb, w, h = read_png(data)
             except (reader.JpegError, ValueError) as e:
                 sys.stderr.write("%s: %s\n" % (name, e))
                 continue
@@ -220,7 +224,8 @@ def encode_corpus_lockstep(inputs, quality: float = 95,
                 (k, sum(c["proc"].comparator.counters.get(k, 0)
                         for c in ctxs))
                 for k in compare_graphs.COUNTERS
-                + compare_graphs.CACHE_COUNTERS) \
+                + compare_graphs.CACHE_COUNTERS
+                + (compare_graphs.UPLOAD_BYTES,)) \
                 + tuple((k, sum(c["proc"].stats.counters.get(k, 0)
                                 for c in ctxs))
                         for k in SEARCH_COUNTERS):

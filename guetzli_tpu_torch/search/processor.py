@@ -112,9 +112,12 @@ class ProcessStats:
 RETURN_MEMORY_BLOCKS = 1 << 14
 RETURN_MEMORY_PASS_BYTES = 16 << 20
 # The spans every encode's timings hold from its start, at 0.0 until
-# they run: a healthy large encode reads 0 for "recover", and one whose
-# compares all replay graphs cached before it 0 for "compare_capture".
-ENCODE_SPANS = ("return_memory", "recover", "compare_capture")
+# they run: a healthy large encode reads 0 for "recover", one whose
+# compares all replay graphs cached before it 0 for "compare_capture";
+# "compare_upload" and "input_decode" read 0 where nothing ran them (an
+# image too small to compare; pixels api.encode_corpus decoded ahead).
+ENCODE_SPANS = ("return_memory", "recover", "compare_capture",
+                "compare_upload", "input_decode")
 # ProcessStats.counters the corpus driver sums over its images.
 SEARCH_COUNTERS = ("quant_waves", "quant_wave_trials", "oom_recoveries",
                    "return_memory_calls", "flips", "flip_code_rebuilds")
@@ -1043,17 +1046,18 @@ def process_jpeg_bytes(params: Params, data: bytes,
     from guetzli_tpu_torch.codec import reader
     stats = stats or ProcessStats()
     with stats.timed("image_setup"):
-        try:
-            jpg = reader.read_jpeg(data)
-        except reader.JpegError as e:
-            sys.stderr.write("Can't read jpg data from input file: %s\n"
-                             % e)
-            return None
-        if not reader.check_jpeg_sanity(jpg):
-            sys.stderr.write("Unsupported input JPEG (unexpectedly large "
-                             "coefficient values).\n")
-            return None
-        rgb = decode_jpeg_to_rgb(jpg)
+        with stats.timed("input_decode"):
+            try:
+                jpg = reader.read_jpeg(data)
+            except reader.JpegError as e:
+                sys.stderr.write("Can't read jpg data from input file: "
+                                 "%s\n" % e)
+                return None
+            if not reader.check_jpeg_sanity(jpg):
+                sys.stderr.write("Unsupported input JPEG (unexpectedly "
+                                 "large coefficient values).\n")
+                return None
+            rgb = decode_jpeg_to_rgb(jpg)
         comparator = None
         if rgb is not None and jpg.width >= 32 and jpg.height >= 32:
             comparator = _comparator(rgb, jpg.width, jpg.height, params,
@@ -1079,7 +1083,7 @@ def process_unsupported_jpeg_bytes(params: Params, data: bytes,
     from guetzli_tpu_torch.codec import full_decode, reader
     stats = stats or ProcessStats()
     try:
-        with stats.timed("image_setup"):
+        with stats.timed("image_setup"), stats.timed("input_decode"):
             jpg = reader.read_jpeg(data)
             rgb, w, h = full_decode.decode_any_to_rgb(jpg)
     except (reader.JpegError, ValueError) as e:
@@ -1110,10 +1114,10 @@ def process_rgb(params: Params, rgb, w, h, stats: ProcessStats = None,
 
 def _comparator(rgb, w, h, params, stats, device, mesh):
     """The image's Comparator, its compare spans (compare_dispatch,
-    compare_wait, compare_capture) charged to stats.timings and its
-    graph counters (compare_graph_captures, compare_graph_replays,
-    compare_eager, compare_graph_shared, compare_graph_evictions) to
-    stats.counters."""
+    compare_wait, compare_capture, compare_upload) charged to
+    stats.timings and its counters (compare_graph_captures,
+    compare_graph_replays, compare_eager, compare_graph_shared,
+    compare_graph_evictions, compare_upload_bytes) to stats.counters."""
     comparator = Comparator(rgb, w, h, params.butteraugli_target, device,
                             mesh=mesh)
     comparator.timings = stats.timings
